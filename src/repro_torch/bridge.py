@@ -1,0 +1,46 @@
+"""Carry a param tree between nested dicts of numpy arrays and of tensors.
+
+A JAX param pytree taken to numpy (``jax.tree.map(np.asarray, params)``)
+becomes the port's dict of tensors with the same keys, nesting, shapes
+and einsum layouts (``wq`` (d, H, hd), ``wo`` (H, hd, d), a leading layer
+axis on ``layers``), and back.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import map_params
+
+
+def _to_tensor(a: Any, device: torch.device,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy: torch may not share read-only memory
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """numpy leaves -> tensors on ``device`` (the card by default), cast to
+    ``dtype`` when given."""
+    device = resolve_device(device)
+    return map_params(lambda a: _to_tensor(a, device, dtype), tree)
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Tensor leaves -> numpy arrays on the host; bf16 leaves come back as
+    float32 (numpy has no bfloat16 of its own)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return map_params(leaf, tree)

@@ -1,0 +1,33 @@
+"""Architecture configs served by the port: the dense decoders only.
+
+Each module is a copy of its namesake in the JAX package's ``configs``;
+the MoE, SSM, hybrid, VLM and enc-dec configs arrive with their layouts.
+"""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = [
+    "yi_9b",
+    "qwen2_5_7b",
+    "stablelm_12b",
+    "codeqwen1_5_7b",
+]
+
+_loaded = False
+
+
+def _load_all() -> None:
+    global _loaded
+    if _loaded:
+        return
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+    _loaded = True
+
+
+from repro_torch.configs.base import (  # noqa: E402,F401
+    ModelConfig,
+    get_config,
+    list_archs,
+)

@@ -1,0 +1,39 @@
+"""Dispatch from model layouts onto the kernels.
+
+A tensor on the card goes to the hand-written CUDA kernel; a tensor on
+the CPU goes to the kernel's plain PyTorch version.  There is no
+fallback: a failed launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import sampling as _samp
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel route for device {t.device}")
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
+    """Decode-time paged attention: q (B, H, D) over a (P, page, KV, D)
+    page pool addressed through int32 block tables (B, nb) and context
+    lengths (B,)."""
+    fn = (_pa.paged_attention_bhd if _on_card(q)
+          else _pa.paged_attention_plain)
+    return fn(q, k_pages, v_pages, block_tables, context_lens)
+
+
+def fused_sample(logits, gumbel, *, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0, vocab_size: int = 0):
+    """Fused temperature+top-k+top-p+Gumbel-max sampling over (B, V)
+    logits; gumbel is the caller's per-row Gumbel(0,1) noise.  Returns
+    (token (B,) int32, behaviour logprob (B,) float32)."""
+    fn = _samp.fused_sample_bv if _on_card(logits) else _samp.fused_sample_plain
+    return fn(logits, gumbel, temperature=temperature, top_k=top_k,
+              top_p=top_p, vocab_size=vocab_size)

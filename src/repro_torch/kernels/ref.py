@@ -1,0 +1,72 @@
+"""Plain-torch oracles for the ported kernels, line for line with the JAX
+package's ``kernels/ref.py`` (the allclose references)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def fused_sample_ref(logits, gumbel, *, temperature=1.0, top_k=0,
+                     top_p=1.0, vocab_size=0):
+    """Oracle for the fused sampling kernel: the unfused serving path
+    (temperature -> top-k -> top-p -> Gumbel-max categorical) with the
+    Gumbel noise passed in, plus the behaviour logprob under the
+    unfiltered temperature-1 policy.
+
+    logits/gumbel (B, V) -> (token (B,) int32, logprob (B,) float32)
+    """
+    logits = logits.float()
+    V = logits.shape[-1]
+    if 0 < vocab_size < V:
+        idx = torch.arange(V, device=logits.device)
+        logits = torch.where(idx < vocab_size, logits, NEG_INF)
+    if temperature <= 0.0:
+        tok = torch.argmax(logits, dim=-1)
+    else:
+        x = logits / temperature
+        if 0 < top_k < V:
+            vals = torch.topk(x, top_k, dim=-1).values
+            x = torch.where(x < vals[..., -1:], NEG_INF, x)
+        if top_p < 1.0:
+            srt = torch.sort(x, dim=-1, descending=True).values
+            cum = torch.cumsum(torch.softmax(srt, dim=-1), dim=-1)
+            cut = srt.gather(-1, (cum < top_p).sum(-1, keepdim=True))
+            x = torch.where(x < cut, NEG_INF, x)
+        tok = torch.argmax(x + gumbel.float(), dim=-1)
+    lse = torch.logsumexp(logits, dim=-1)
+    lp = logits.gather(-1, tok[..., None])[..., 0] - lse
+    return tok.to(torch.int32), lp.float()
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens):
+    """Single-token decode attention over a paged KV cache.
+
+    q            (B, H, D)       one query token per sequence
+    k_pages      (P, page, KV, D) page pool (page 0 = trash page)
+    v_pages      (P, page, KV, D)
+    block_tables (B, nb) int32   per-request page ids (trash-padded)
+    context_lens (B,)    int32   valid tokens per request
+    -> (B, H, D)
+    """
+    B, H, D = q.shape
+    P, page, KV, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    G = H // KV
+    tables = block_tables.long()
+    # gather the logical (B, nb*page, KV, D) K/V views through the tables
+    k = k_pages[tables].reshape(B, nb * page, KV, D)
+    v = v_pages[tables].reshape(B, nb * page, KV, D)
+    kf = torch.repeat_interleave(k.float(), G, dim=2)  # (B, S, H, D)
+    vf = torch.repeat_interleave(v.float(), G, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), kf)
+    s = s / math.sqrt(D)
+    pos = torch.arange(nb * page, device=q.device)[None, :]
+    ok = pos < context_lens.long()[:, None]
+    s = torch.where(ok[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    # empty context (context_len == 0): zeros, not a softmax over the mask
+    p = torch.where((context_lens > 0)[:, None, None], p, 0.0)
+    return torch.einsum("bhs,bshd->bhd", p, vf).to(q.dtype)

@@ -1,0 +1,96 @@
+"""Attention, dense parts: GQA/MHA projections and scaled dot product.
+
+Counterpart of the JAX package's ``models/attention.py``.  Layouts:
+  hidden      (B, S, d_model)
+  q           (B, S, H, hd)
+  k/v         (B, S, KV, hd)
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (
+    NEG_INF,
+    Params,
+    dense_init,
+    init_rmsnorm,
+    rmsnorm,
+)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def init_attention(gen, cfg: ModelConfig, dtype, device, *,
+                   lead: Sequence[int] = ()) -> Params:
+    hd = cfg.resolved_head_dim
+    H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    p: Params = {
+        "wq": dense_init(gen, (d, H, hd), dtype, device, lead=lead),
+        "wk": dense_init(gen, (d, KV, hd), dtype, device, lead=lead),
+        "wv": dense_init(gen, (d, KV, hd), dtype, device, lead=lead),
+        "wo": dense_init(gen, (H, hd, d), dtype, device, lead=lead),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", H), ("bk", KV), ("bv", KV)):
+            p[name] = torch.zeros(tuple(lead) + (heads, hd), dtype=dtype,
+                                  device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, device, lead=lead)
+        p["k_norm"] = init_rmsnorm(hd, dtype, device, lead=lead)
+    return p
+
+
+def qkv_project(
+    p: Params, cfg: ModelConfig, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Core scaled-dot-product with GQA
+# ---------------------------------------------------------------------------
+def sdpa(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, KV, hd)
+    v: torch.Tensor,  # (B, Sk, KV, hd)
+    mask: Optional[torch.Tensor] = None,  # (B, 1|H, Sq, Sk) or (Sq, Sk), additive
+) -> torch.Tensor:
+    """Explicit products and a softmax, as the JAX path computes it: f32
+    scores, additive -1e30 mask, probabilities cast to v's type before
+    the PV product, GQA by reshape to (B, Sq, KV, G, hd)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    groups = H // KV
+    if k.dtype != q.dtype:
+        k = k.to(q.dtype)
+        v = v.to(q.dtype)
+    qg = q.reshape(B, Sq, KV, groups, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[None, None, None]
+        elif mask.dim() == 4:  # (B, 1|H, Sq, Sk) -> (B, KV, groups, Sq, Sk)
+            mask = mask.reshape(B, -1, 1, Sq, mask.shape[-1])
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def additive_mask(ok: torch.Tensor) -> torch.Tensor:
+    """0 where ``ok``, -1e30 elsewhere, as float32."""
+    return torch.where(ok, 0.0, NEG_INF).float()

@@ -1,0 +1,271 @@
+"""Cache layouts behind the serve-tier interface.  This slice ports the
+paged-KV layout of dense attention stacks.
+
+The continuous-batching engine (:class:`repro_torch.serve.engine.PagedEngine`)
+is host-side scheduling over a device cache whose shape depends on the
+architecture.  :class:`PagedKVLayout` is the vLLM layout: a (L, P, page,
+KV, hd) page pool addressed through per-request block tables.  Pages grow
+with every decoded token, preemption recomputes, and the radix prefix
+trie can share full pages and copy-on-write partial ones.
+
+Counterpart of the JAX package's ``serve/layouts.py``.  Where JAX donates
+the page pools to a jitted step, the port updates them in place with
+``index_put_``.  Decode attention and sampling go through
+:mod:`repro_torch.kernels.ops`: the Hopper kernels on the card, their
+plain versions on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import additive_mask, qkv_project, sdpa
+from repro_torch.models.layers import apply_rope, embed, mlp, rmsnorm, unembed
+from repro_torch.models.model import layer_params
+from repro_torch.serve.paging import (
+    TRASH_PAGE,
+    PagedKVCache,
+    init_paged_cache,
+    pad_block_table,
+)
+from repro_torch.serve.sampling import request_noise, sample_tokens_fused
+from repro_torch.serve.scheduler import KVPageCost, NullPageCost, Request
+
+
+class CacheLayout:
+    """Device-cache strategy for one model architecture.
+
+    Subclasses own the step/prefill compute and the cache buffers; the
+    engine owns the host loop and calls through this interface.  The
+    class attributes are the *policy* the engine and scheduler read:
+
+    - ``uses_pages``: requests consume pool pages (block tables, page
+      watermarks, COW) vs a constant-size per-slot cache.
+    - ``supports_partial_cow``: a radix
+      :class:`~repro_torch.serve.paging.PrefixCache` (full-page adoption +
+      partial-page copy-on-write) may be attached.
+    - ``preempt_keeps_progress``: preemption snapshots per-request cache
+      state, so ``num_cached`` survives requeueing.
+
+    ``noise_fn(seeds, positions, V)`` gives the (B, V) Gumbel noise of the
+    decode batch (default :func:`~repro_torch.serve.sampling.request_noise`).
+    It is a test seam: a test may set it to hand the port another
+    framework's noise.
+    """
+
+    name = "abstract"
+    uses_pages = True
+    supports_partial_cow = True
+    supports_chunked_prefill = True
+    preempt_keeps_progress = False
+
+    def __init__(self, cfg: ModelConfig, *, max_batch: int, page_size: int,
+                 num_pages: int, max_blocks: int, temperature: float,
+                 top_k: int, top_p: float, dtype, device: DeviceLike = None):
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.max_blocks = max_blocks
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.noise_fn = request_noise
+
+    # -- scheduler integration ---------------------------------------------
+    def cost_model(self):
+        return (KVPageCost(self.page_size) if self.uses_pages
+                else NullPageCost())
+
+    # -- compute (implemented by subclasses) -------------------------------
+    def step(self, params, tokens, positions, tables, seeds, active):
+        """Advance every slot one token; returns (tokens, logprobs)."""
+        raise NotImplementedError
+
+    def prefill_chunk_step(self, params, tokens, positions, n_valid,
+                           req: Request) -> None:
+        """Cache ``n_valid`` positions of one request in a single call."""
+        raise NotImplementedError
+
+    def cow(self, src: int, dst: int) -> None:
+        """Copy-on-write a whole page (paged-KV layouts only)."""
+        raise NotImplementedError
+
+    # -- lifecycle hooks (default: no-ops) ---------------------------------
+    def on_admit(self, req: Request) -> int:
+        """Called for each newly-admitted request; returns the number of
+        prompt positions satisfied from a layout-private cache."""
+        return 0
+
+    def on_preempt(self, req: Request) -> None:
+        """Called just before the scheduler requeues a running request."""
+
+    def on_finish(self, req: Request, *, index_in_cache: bool) -> None:
+        """Called just before the scheduler evicts a finished request."""
+
+    def on_weight_swap(self) -> None:
+        """Called after an in-flight weight update lands."""
+
+    def note_progress(self, req: Request) -> None:
+        """Called after ``req.num_cached`` advances (decode or chunk)."""
+
+    # -- shared sampling tail ----------------------------------------------
+    def _sample_batch(self, logits, seeds, positions):
+        """Per-request deterministic sampling: the noise of the token at
+        ``position`` of a request seeded ``seed`` depends on nothing else,
+        so draws are invariant to batching, chunking and preemption."""
+        gumbel = None
+        if self.temperature > 0.0:
+            gumbel = torch.as_tensor(
+                self.noise_fn(seeds, positions, logits.shape[-1]),
+                dtype=torch.float32, device=logits.device)
+        return sample_tokens_fused(
+            gumbel, logits, temperature=self.temperature, top_k=self.top_k,
+            top_p=self.top_p, vocab_size=self.cfg.vocab_size)
+
+    def _to_device(self, a: Any, dtype=torch.int64) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+
+# ===========================================================================
+# Paged KV (dense attention stacks)
+# ===========================================================================
+class PagedKVLayout(CacheLayout):
+    """vLLM-style paged KV pool + block tables; dense attention stacks."""
+
+    name = "paged-kv"
+    uses_pages = True
+    supports_partial_cow = True
+    preempt_keeps_progress = False
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__(cfg, **kw)
+        self.cache: PagedKVCache = init_paged_cache(
+            cfg.num_layers, self.num_pages, self.page_size,
+            cfg.num_kv_heads, cfg.resolved_head_dim, self.dtype, self.device)
+
+    # -- per-layer FFN hook (an MoE subclass overrides it) ------------------
+    def _ffn(self, lp, h):
+        return mlp(lp["mlp"], h)
+
+    # -- compute -------------------------------------------------------------
+    @torch.no_grad()
+    def _step_impl(self, params, tokens, positions, block_tables, seeds):
+        """One token for every slot.  tokens/positions/seeds (max_batch,)
+        int64, block_tables (max_batch, max_blocks) int32, cache
+        (L, P, page, KV, hd)."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens[:, None])  # (B, 1, d)
+        posb = positions[:, None]
+        page = self.page_size
+        page_idx = block_tables.long().gather(
+            1, (positions // page)[:, None])[:, 0]
+        offset = positions % page
+        ctx = (positions + 1).to(torch.int32)  # valid tokens after the write
+        for i in range(cfg.num_layers):
+            lp = layer_params(params["layers"], i)
+            kl, vl = self.cache.k[i], self.cache.v[i]  # (P, page, KV, hd)
+            h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            q, k, v = qkv_project(lp["attn"], cfg, h)  # (B, 1, H|KV, hd)
+            q = apply_rope(q, posb, cfg.rope_theta)
+            k = apply_rope(k, posb, cfg.rope_theta)
+            # scatter this step's K/V into each request's current page
+            # (inactive slots all target the trash page: duplicate
+            # indices there are harmless, nothing reads it unmasked)
+            kl.index_put_((page_idx, offset), k[:, 0].to(kl.dtype))
+            vl.index_put_((page_idx, offset), v[:, 0].to(vl.dtype))
+            out = kops.paged_attention(
+                q[:, 0], kl, vl, block_tables, ctx)[:, None]
+            x = x + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
+            x = x + self._ffn(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = unembed(params["embed"], x)[:, 0]  # (B, V)
+        return self._sample_batch(logits, seeds, positions)
+
+    @torch.no_grad()
+    def _prefill_impl(self, params, tokens, positions, block_table,
+                      n_valid: int) -> None:
+        """Write KV for up to ``prefill_chunk`` prompt positions of ONE
+        request in a single forward.  No logits come back: every chunked
+        position is strictly before the sampling frontier, which always
+        goes through :meth:`_step_impl`.  tokens/positions (C,) int64,
+        block_table (max_blocks,) int64."""
+        cfg = self.cfg
+        C = tokens.shape[0]
+        page = self.page_size
+        S = self.max_blocks * page
+        valid = torch.arange(C, device=self.device) < n_valid
+        x = embed(params["embed"], tokens[None, :])  # (1, C, d)
+        posb = positions[None, :]
+        # padded rows scatter into the trash page, like inactive slots
+        page_idx = torch.where(valid, block_table[positions // page],
+                               TRASH_PAGE)
+        offset = positions % page
+        kpos = torch.arange(S, device=self.device)
+        # causal over the request's own logical context: everything at or
+        # before a row's position is already cached (earlier steps) or is
+        # written by this very chunk's scatter before the gather below
+        mask = additive_mask(kpos[None, :] <= positions[:, None])[None, None]
+        for i in range(cfg.num_layers):
+            lp = layer_params(params["layers"], i)
+            kl, vl = self.cache.k[i], self.cache.v[i]
+            h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            q, k, v = qkv_project(lp["attn"], cfg, h)  # (1, C, H|KV, hd)
+            q = apply_rope(q, posb, cfg.rope_theta)
+            k = apply_rope(k, posb, cfg.rope_theta)
+            kl.index_put_((page_idx, offset), k[0].to(kl.dtype))
+            vl.index_put_((page_idx, offset), v[0].to(vl.dtype))
+            kc = kl[block_table].reshape(1, S, *kl.shape[2:])
+            vc = vl[block_table].reshape(1, S, *vl.shape[2:])
+            out = sdpa(q, kc, vc, mask)  # (1, C, H, hd)
+            x = x + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
+            x = x + self._ffn(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+    # -- host-facing API ----------------------------------------------------
+    def step(self, params, tokens, positions, tables, seeds, active):
+        return self._step_impl(
+            params, self._to_device(tokens), self._to_device(positions),
+            self._to_device(tables, torch.int32), self._to_device(seeds))
+
+    def prefill_chunk_step(self, params, tokens, positions, n_valid,
+                           req: Request) -> None:
+        table = self._to_device(pad_block_table(req.pages, self.max_blocks))
+        self._prefill_impl(params, self._to_device(tokens),
+                           self._to_device(positions), table, int(n_valid))
+
+    @staticmethod
+    @torch.no_grad()
+    def _cow_impl(k_pages, v_pages, src: int, dst: int) -> None:
+        """Copy page ``src`` into page ``dst`` on every layer, in place —
+        the copy-on-write that lets a request extend a shared partial page
+        privately.  The whole page is copied: rows past the destination's
+        computed watermark are never read before the owner overwrites
+        them."""
+        k_pages[:, dst] = k_pages[:, src]
+        v_pages[:, dst] = v_pages[:, src]
+
+    def cow(self, src: int, dst: int) -> None:
+        self._cow_impl(self.cache.k, self.cache.v, src, dst)
+
+
+# ===========================================================================
+# Registry
+# ===========================================================================
+def layout_class(cfg: ModelConfig):
+    """The layout class serving ``cfg``, or None when uncovered (this
+    slice covers dense stacks without a sliding window)."""
+    if cfg.kind == DENSE and not cfg.sliding_window:
+        return PagedKVLayout
+    return None
+
+
+def covers(cfg: ModelConfig) -> bool:
+    """True when the paged engine has a cache layout for ``cfg``."""
+    return layout_class(cfg) is not None

@@ -1,0 +1,96 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, the port's entry points never fall back
+to the CPU on their own, and the kernel dispatch has no fallback path."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _banned(name: str) -> bool:
+    """jax, jax.*, repro and repro.* -- but not repro_torch."""
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_banned_pattern_tells_repro_torch_apart():
+    assert _banned("repro") and _banned("repro.serve") and _banned("jax.numpy")
+    assert not _banned("repro_torch") and not _banned("repro_torch.serve")
+
+
+@pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imports(path) if m and _banned(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import repro_torch.serve, repro_torch.bridge, repro_torch.models\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.configs as c; c.get_config('yi-9b')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import PagedEngine, init_paged_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("yi-9b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(None, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_paged_cache(1, 2, 4, 1, 8)
+    # naming the CPU is the only way there
+    assert PagedEngine(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["ops.py", "paged_attention.py",
+                                    "sampling.py"])
+def test_kernel_dispatch_has_no_fallback(module):
+    tree = ast.parse((PORT / "kernels" / module).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
