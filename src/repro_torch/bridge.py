@@ -3,7 +3,8 @@
 A JAX param pytree taken to numpy (``jax.tree.map(np.asarray, params)``)
 becomes the port's dict of tensors with the same keys, nesting, shapes
 and einsum layouts (``wq`` (d, H, hd), ``wo`` (H, hd, d), a leading layer
-axis on ``layers``), and back.
+axis on ``layers``), and back; an AdamW state the same way, so both
+packages can start from the same moments.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import map_params
+from repro_torch.utils.treeutil import tree_map
+from repro_torch.train.optimizer import AdamWState
 
 
 def _to_tensor(a: Any, device: torch.device,
@@ -31,7 +33,7 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
     """numpy leaves -> tensors on ``device`` (the card by default), cast to
     ``dtype`` when given."""
     device = resolve_device(device)
-    return map_params(lambda a: _to_tensor(a, device, dtype), tree)
+    return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -43,4 +45,20 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
             t = t.float()
         return t.numpy()
 
-    return map_params(leaf, tree)
+    return tree_map(leaf, tree)
+
+
+def opt_state_from_numpy(state: Any, device: DeviceLike = None
+                         ) -> AdamWState:
+    """An AdamW state with numpy leaves (``jax.tree.map(np.asarray,
+    state)`` of the JAX ``AdamWState``) -> the port's, moments in f32."""
+    return AdamWState(step=int(np.asarray(state.step)),
+                      mu=params_from_numpy(state.mu, device, torch.float32),
+                      nu=params_from_numpy(state.nu, device, torch.float32))
+
+
+def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The port's AdamW state with numpy leaves and an int32 step."""
+    return AdamWState(step=np.int32(state.step),
+                      mu=params_to_numpy(state.mu),
+                      nu=params_to_numpy(state.nu))

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import sampling as _samp
 
@@ -18,6 +19,19 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel route for device {t.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Model layout (B, S, H, D) / (B, S, KV, D) -> (B, S, H, D).  On the
+    card the forward and backward are kernels (:class:`FlashAttention`),
+    launched on transposed views (no copies)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if _on_card(q):
+        out = _fa.FlashAttention.apply(qt, kt, vt, causal, window)
+    else:
+        out, _ = _fa.flash_attention_plain(qt, kt, vt, causal=causal,
+                                           window=window)
+    return out.transpose(1, 2)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens):

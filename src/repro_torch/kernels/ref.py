@@ -9,6 +9,27 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """q (B, H, S, D); k/v (B, KV, S, D) -> (B, H, S, D)."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    kf = torch.repeat_interleave(k, G, dim=1).float()
+    vf = torch.repeat_interleave(v, G, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf)
+    s = s / math.sqrt(D)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    s = torch.where(ok[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
 def fused_sample_ref(logits, gumbel, *, temperature=1.0, top_k=0,
                      top_p=1.0, vocab_size=0):
     """Oracle for the fused sampling kernel: the unfused serving path

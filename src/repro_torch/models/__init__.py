@@ -1,1 +1,1 @@
-from repro_torch.models.model import init_model  # noqa: F401
+from repro_torch.models.model import forward, init_model  # noqa: F401

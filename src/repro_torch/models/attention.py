@@ -1,6 +1,10 @@
-"""Attention, dense parts: GQA/MHA projections and scaled dot product.
+"""Attention, dense parts: GQA/MHA projections, scaled dot product and the
+full-sequence attention block.
 
-Counterpart of the JAX package's ``models/attention.py``.  Layouts:
+Counterpart of the JAX package's ``models/attention.py``.  Its
+``chunked_sdpa`` (query-block chunking for S >= 2048) has no counterpart:
+the full-sequence block goes through the flash-attention kernel, which
+never materialises the (S, S) scores on the card.  Layouts:
   hidden      (B, S, d_model)
   q           (B, S, H, hd)
   k/v         (B, S, KV, hd)
@@ -13,9 +17,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
     NEG_INF,
     Params,
+    apply_rope,
     dense_init,
     init_rmsnorm,
     rmsnorm,
@@ -94,3 +100,39 @@ def sdpa(
 def additive_mask(ok: torch.Tensor) -> torch.Tensor:
     """0 where ``ok``, -1e30 elsewhere, as float32."""
     return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def causal_mask(Sq: int, Sk: int, window: int = 0, device=None) -> torch.Tensor:
+    """Additive (Sq, Sk) mask. Assumes queries are the last Sq of Sk keys."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    ok = kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return additive_mask(ok)
+
+
+# ---------------------------------------------------------------------------
+# Full attention block (logprob recompute / training)
+# ---------------------------------------------------------------------------
+def attention(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Projections, rope on q and k, flash attention (the kernel on the
+    card, its plain version on the CPU), output projection."""
+    B, S, _ = x.shape
+    q, k, v = qkv_project(p, cfg, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])

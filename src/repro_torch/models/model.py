@@ -1,25 +1,33 @@
-"""Model assembly.  This slice ports ``init_model`` for dense stacks.
+"""Model assembly for dense stacks: ``init_model`` and the full-sequence
+``forward`` (logprob recompute and training).
 
 Per-layer params carry a leading layer axis, as in the JAX package's
-scan-stacked pytree, so bridged weights keep their keys and shapes.
-``forward``, ``decode_step`` and the static engine come with the next
-slice; serving runs through :mod:`repro_torch.serve.layouts`.
+scan-stacked pytree, so bridged weights keep their keys and shapes; the
+JAX ``lax.scan`` over that axis becomes a Python loop.  ``decode_step``,
+``prefill`` and the static engine come with the static-engine slice;
+serving runs through :mod:`repro_torch.serve.layouts`.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     Params,
+    embed,
     init_embedding,
     init_mlp,
     init_rmsnorm,
+    mlp,
+    rmsnorm,
+    unembed,
 )
+from repro_torch.utils.treeutil import tree_leaves, tree_map
 
 
 def _init_attn_layer(gen, cfg: ModelConfig, dtype, device, *,
@@ -53,12 +61,55 @@ def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
     return p
 
 
-def map_params(fn: Callable[[torch.Tensor], Any], tree: Dict) -> Dict:
-    """``fn`` applied to every tensor leaf of a nested param dict."""
-    return {k: map_params(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
 def layer_params(layers: Params, i: int) -> Params:
     """The params of layer ``i``: views into the stacked tensors."""
-    return map_params(lambda x: x[i], layers)
+    return tree_map(lambda x: x[i], layers)
+
+
+def unstack_layers(layers: Params):
+    """The per-layer param dicts of a stacked tree, as views made by one
+    ``unbind`` per tensor: autograd then stacks each gradient once, where
+    indexing layer by layer would add a full-size zero tensor per layer."""
+    parts = tree_map(lambda t: t.unbind(0), layers)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
+
+
+# ===========================================================================
+# Forward (training / inference logprobs) - full sequence
+# ===========================================================================
+def _attn_layer_fwd(lp: Params, cfg: ModelConfig, x, *, causal=True,
+                    window=0):
+    h = attn.attention(lp["attn"], cfg, rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                       causal=causal, window=window)
+    x = x + h
+    x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return x
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            extra=None, *, remat: bool = False, return_hidden: bool = False):
+    """Returns (logits (B, S, padded_vocab), aux_loss scalar), plus the
+    final hidden state when ``return_hidden``.
+
+    remat=True checkpoints each layer (activations recomputed in the
+    backward pass).  The JAX ``act_spec`` (sequence-parallel sharding) has
+    no counterpart on one card.
+    """
+    if cfg.kind != DENSE:
+        raise NotImplementedError(
+            f"repro_torch.forward ports the dense kind only, not {cfg.kind}")
+    x = embed(params["embed"], tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    w = cfg.sliding_window
+    for lp in unstack_layers(params["layers"]):
+        if remat:
+            x = checkpoint(lambda h, lp=lp: _attn_layer_fwd(lp, cfg, h,
+                                                            window=w),
+                           x, use_reentrant=False)
+        else:
+            x = _attn_layer_fwd(lp, cfg, x, window=w)
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if return_hidden:
+        return unembed(params["embed"], x), aux, x
+    return unembed(params["embed"], x), aux

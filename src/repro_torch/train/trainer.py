@@ -1,0 +1,191 @@
+"""Train and inference step builders.
+
+Counterpart of the JAX package's ``train/trainer.py``:
+``make_train_step`` builds the RL policy-gradient step (clipped surrogate
+with a token-level loss) and ``make_prefill_step`` the inference worker's
+logprob recompute.  ``make_serve_step`` comes with ``decode_step`` in the
+static-engine slice.  Of the JAX ``TrainHParams``, ``act_spec`` and
+``grad_specs`` (sharding) have no counterpart on one card, and
+``compute_dtype`` and ``value_coef`` are read by nothing in either
+package.  Only the dense kind runs here, so the VLM and encoder-decoder
+inputs of the batch are not taken.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.models.layers import NEG_INF, token_logprobs
+from repro_torch.train.optimizer import (
+    AdamWConfig,
+    AdamWState,
+    adamw_update,
+    init_adamw,
+)
+from repro_torch.utils.treeutil import tree_leaves, tree_map, tree_unflatten
+
+Batch = Dict[str, torch.Tensor]
+
+
+class TrainHParams(NamedTuple):
+    optimizer: AdamWConfig = AdamWConfig()
+    n_microbatches: int = 1
+    remat: bool = False
+    # PPO/GRPO clipping
+    clip_eps_low: float = 0.2
+    clip_eps_high: float = 0.2
+    kl_coef: float = 0.0
+    entropy_coef: float = 0.0
+    # dtype of the gradient accumulator across microbatches
+    accum_dtype: Any = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# RL policy loss (token-level, DAPO-style averaging)
+# ---------------------------------------------------------------------------
+def policy_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
+                batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Clipped-surrogate policy gradient on response tokens.
+
+    batch:
+      tokens        (B, S) int — prompt + response
+      old_logprobs  (B, S) f32 — behaviour logprobs, aligned so entry t
+                                 scores tokens[t] (entry 0 unused)
+      advantages    (B, S) f32
+      loss_mask     (B, S) f32 — 1 on response tokens
+      ref_logprobs  (B, S) f32 — optional, for the k3 KL term
+    """
+    logits, aux = M.forward(params, cfg, batch["tokens"], remat=hp.remat)
+    # logits[t] predicts tokens[t+1]
+    lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
+                        cfg.vocab_size)  # (B, S-1)
+    old_lp = batch["old_logprobs"][:, 1:]
+    adv = batch["advantages"][:, 1:]
+    mask = batch["loss_mask"][:, 1:].float()
+
+    log_ratio = lp - old_lp
+    ratio = torch.exp(log_ratio)
+    unclipped = ratio * adv
+    clipped = torch.clamp(ratio, 1.0 - hp.clip_eps_low,
+                          1.0 + hp.clip_eps_high) * adv
+    pg = -torch.minimum(unclipped, clipped)
+
+    # token-level averaging (DAPO): sum over all tokens / total token count
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (pg * mask).sum() / denom
+
+    metrics = {
+        "pg_loss": loss,
+        "aux_loss": aux,
+        "ratio_mean": (ratio * mask).sum() / denom,
+        "approx_kl": ((ratio - 1.0 - log_ratio) * mask).sum() / denom,
+        "clip_frac": (((ratio - 1.0).abs() > hp.clip_eps_high).float()
+                      * mask).sum() / denom,
+    }
+    if hp.entropy_coef > 0:
+        lg = logits[:, :-1].float()
+        V = lg.shape[-1]
+        lg = torch.where(torch.arange(V, device=lg.device) < cfg.vocab_size,
+                         lg, NEG_INF)
+        logp = torch.log_softmax(lg, dim=-1)
+        ent = -(torch.exp(logp) * logp).sum(-1)  # (B, S-1)
+        ent_mean = (ent * mask).sum() / denom
+        loss = loss - hp.entropy_coef * ent_mean
+        metrics["entropy"] = ent_mean
+    if hp.kl_coef > 0 and "ref_logprobs" in batch:
+        ref = batch["ref_logprobs"][:, 1:]
+        # k3 estimator (Schulman): e^(ref-lp) - (ref-lp) - 1
+        d = ref - lp
+        kl = ((torch.exp(d) - d - 1.0) * mask).sum() / denom
+        loss = loss + hp.kl_coef * kl
+        metrics["kl_ref"] = kl
+    loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def lm_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
+            batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain next-token cross-entropy (supervised warm-up and tests)."""
+    logits, aux = M.forward(params, cfg, batch["tokens"], remat=hp.remat)
+    lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
+                        cfg.vocab_size)
+    mask = (batch["loss_mask"][:, 1:] if "loss_mask" in batch
+            else torch.ones_like(lp))
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = -(lp * mask).sum() / denom + aux
+    return loss, {"loss": loss, "ce": loss - aux}
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss):
+    """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
+
+    Gradient accumulation: the batch is split into n_microbatches chunks
+    run one after the other (grads averaged in ``hp.accum_dtype``, metrics
+    of the last chunk), bounding activation memory at one microbatch.
+    The params and moments are updated in place (see ``adamw_update``).
+    """
+
+    def grads_of(params, mb: Batch):
+        live = tree_map(
+            lambda p: p.detach().requires_grad_(p.is_floating_point()),
+            params)
+        leaves = tree_leaves(live)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(cfg, hp, live, mb)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return ({k: v.detach() for k, v in metrics.items()},
+                tree_unflatten(params, grads))
+
+    def train_step(params, opt_state: AdamWState, batch: Batch):
+        nm = hp.n_microbatches
+        if nm <= 1:
+            metrics, grads = grads_of(params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0] // nm
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=hp.accum_dtype, device=p.device), params)
+            for i in range(nm):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                metrics, g = grads_of(params, mb)
+                tree_map(lambda acc, x: acc.add_(x.to(hp.accum_dtype)),
+                         grads, g)
+                del g
+            tree_map(lambda acc: acc.div_(nm), grads)
+        params, opt_state, opt_metrics = adamw_update(
+            hp.optimizer, params, grads, opt_state)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, hp: Optional[TrainHParams] = None):
+    """Inference worker: recompute per-token logprobs for a rollout batch."""
+    hp = hp or TrainHParams()
+
+    @torch.no_grad()
+    def prefill_step(params, batch: Batch) -> torch.Tensor:
+        logits, _ = M.forward(params, cfg, batch["tokens"], remat=hp.remat)
+        lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
+                            cfg.vocab_size)
+        # align: entry t scores tokens[t]; entry 0 zero
+        return F.pad(lp, (1, 0))
+
+    return prefill_step
+
+
+def init_train_state(gen, cfg: ModelConfig, dtype=torch.float32,
+                     device=None):
+    params = M.init_model(gen, cfg, dtype, device)
+    return params, init_adamw(params)

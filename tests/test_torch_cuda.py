@@ -10,10 +10,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import sampling as ks
+from repro_torch.models import forward, init_model
 from repro_torch.serve.sampling import request_noise
+from repro_torch.train import TrainHParams, policy_loss
+from repro_torch.utils.treeutil import tree_leaves, tree_map
+
+# one intra-op thread: the test workers share the host's cores, and more
+# threads in each oversubscribe them (the port's files take ~78 s under
+# -n 6 with torch's default threads, ~50 s with one)
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -158,3 +169,144 @@ def test_launch_counters_count_kernel_launches_only(dev):
     ks.fused_sample_plain(logits, noise)
     ks.fused_sample_bv(logits, noise)
     assert ks.fused_sample_bv.launches == m0 + 1
+    q, k, v, dout = _flash_inputs(0, 1, 2, 1, 64, 32, torch.float32, dev)
+    f0, b0 = fa.flash_attention_bhsd.launches, fa.flash_attention_bwd.launches
+    fa.flash_attention_plain(q, k, v)
+    out, lse = fa.flash_attention_bhsd(q, k, v)
+    fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert fa.flash_attention_bhsd.launches == f0 + 1
+    assert fa.flash_attention_bwd.launches == b0 + 1
+
+
+# ---------------------------------------------------------------------------
+# K3: flash attention forward and backward
+# ---------------------------------------------------------------------------
+# f32: summation order only.  bf16: both round the same f32 result once.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# grads, relative to the largest |grad|: f32 summation order; bf16 inputs
+# and outputs rounded, and delta = rowsum(dO * O) taken from the bf16 O
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(seed, B, H, KV, S, D, dtype, dev):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(dev, dtype) for shape in
+               ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
+    dout = torch.from_numpy(rng.standard_normal((B, H, S, D), np.float32))
+    return q, k, v, dout.to(dev, dtype)
+
+
+FLASH_CASES = [
+    (1, 2, 1, 128, 32, True, 0),
+    (2, 4, 2, 256, 64, True, 100),
+    (1, 8, 8, 128, 128, False, 0),   # MHA, bidirectional
+    (2, 6, 2, 384, 64, True, 0),     # 3-way GQA groups
+    (2, 4, 2, 1, 16, True, 0),       # one token
+    (1, 4, 1, 100, 64, True, 0),     # tail: S not a multiple of 64
+    (2, 4, 2, 200, 48, True, 70),    # window straddles tiles, D % 16 != 0
+    (1, 4, 2, 130, 128, False, 40),  # bidirectional window
+    (2, 32, 4, 1000, 128, True, 256),  # yi-9b heads, tail + window
+    (16, 32, 4, 512, 128, True, 0),    # yi-9b logprob recompute
+    (2, 32, 4, 1024, 128, True, 0),    # yi-9b train microbatch
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,D,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, B, H, KV, S, D, causal,
+                                              window, dtype):
+    q, k, v, _ = _flash_inputs(S + D, B, H, KV, S, D, dtype, dev)
+    out, lse = fa.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window)
+    oracle = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = FA_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out.float(), oracle.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,D,causal,window", FLASH_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_autograd(
+        dev, B, H, KV, S, D, causal, window, dtype):
+    q, k, v, dout = _flash_inputs(S * 3 + D, B, H, KV, S, D, dtype, dev)
+    out, lse = fa.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 window=window)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain, _ = fa.flash_attention_plain(*leaves, causal=causal,
+                                        window=window)
+    want = torch.autograd.grad(plain, leaves, dout)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= GRAD_RTOL[dtype] * scale + 1e-6, (name, err, scale)
+
+
+def test_flash_attention_autograd_in_model_layout(dev):
+    """ops.flash_attention on (B, S, H, D) views: the kernels read and
+    write through strides, and autograd reaches q, k and v."""
+    B, S, H, KV, D = 2, 77, 8, 2, 64
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, np.float32)).to(dev)
+               for sh in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    dout = torch.from_numpy(rng.standard_normal((B, S, H, D), np.float32))
+    dout = dout.to(dev)
+    grads = []
+    for fn in (ops.flash_attention, _plain_model_layout):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=True, window=0)
+        grads.append((out, *torch.autograd.grad(out, leaves, dout)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _plain_model_layout(q, k, v, *, causal, window):
+    out, _ = fa.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_forward_and_policy_grads_card_vs_cpu(dev, remat):
+    """Reduced yi-9b in f32 from the same weights: logits and every
+    gradient of the policy loss on the card (K3 forward and backward,
+    re-run inside the backward under remat) against the CPU (the plain
+    version).  f32 on both sides: cuBLAS and the CPU sum in other
+    orders."""
+    cfg = get_config("yi-9b").reduced()
+    cpu = init_model(torch.Generator().manual_seed(7), cfg, torch.float32,
+                     "cpu")
+    rng = np.random.default_rng(7)
+    B, S = 2, 90
+    mask = np.zeros((B, S), np.float32)
+    mask[:, 30:] = 1.0
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                                     (B, S))),
+             "old_logprobs": torch.full((B, S), -6.0),
+             "advantages": torch.from_numpy(
+                 rng.standard_normal((B, S)).astype(np.float32) * mask),
+             "loss_mask": torch.from_numpy(mask)}
+    hp = TrainHParams(remat=remat, entropy_coef=0.01)
+    out = []
+    for device in ("cpu", dev):
+        params = tree_map(lambda t: t.to(device).requires_grad_(), cpu)
+        mb = {k: v.to(device) for k, v in batch.items()}
+        logits, _ = forward(params, cfg, mb["tokens"], remat=remat)
+        loss, _ = policy_loss(cfg, hp, params, mb)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out.append((logits.detach().cpu(), float(loss.detach()),
+                    [g.cpu() for g in grads]))
+    (lc, loss_c, gc), (lg, loss_g, gg) = out
+    torch.testing.assert_close(lg, lc, atol=1e-4, rtol=1e-4)
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) + 1e-6
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-7

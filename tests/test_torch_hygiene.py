@@ -11,6 +11,11 @@ from pathlib import Path
 import pytest
 import torch
 
+# one intra-op thread: the test workers share the host's cores, and more
+# threads in each oversubscribe them (the port's files take ~78 s under
+# -n 6 with torch's default threads, ~50 s with one)
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -53,6 +58,8 @@ def test_port_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch.serve, repro_torch.bridge, repro_torch.models\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.train, repro_torch.rl.advantage\n"
+        "import repro_torch.utils.treeutil\n"
         "import repro_torch.configs as c; c.get_config('yi-9b')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
@@ -67,6 +74,7 @@ def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     from repro_torch.serve import PagedEngine, init_paged_cache
+    from repro_torch.train import init_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("yi-9b").reduced()
@@ -76,12 +84,14 @@ def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
         init_model(None, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_paged_cache(1, 2, 4, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(None, cfg)
     # naming the CPU is the only way there
     assert PagedEngine(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("module", ["ops.py", "paged_attention.py",
-                                    "sampling.py"])
+                                    "sampling.py", "flash_attention.py"])
 def test_kernel_dispatch_has_no_fallback(module):
     tree = ast.parse((PORT / "kernels" / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]

@@ -15,6 +15,11 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.serve import sampling as serve_sampling
 
+# one intra-op thread: the test workers share the host's cores, and more
+# threads in each oversubscribe them (the port's files take ~78 s under
+# -n 6 with torch's default threads, ~50 s with one)
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -16,6 +16,12 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import init_model
 from repro_torch.models import layers as tlayers
 
+# one intra-op thread: the test workers share the host's cores, and more
+# threads in each oversubscribe them (the port's files take ~78 s under
+# -n 6 with torch's default threads, ~50 s with one)
+torch.set_num_threads(1)
+
+
 DENSE = ["yi-9b", "qwen2.5-7b", "stablelm-12b", "codeqwen1.5-7b"]
 ATOL = 2e-5  # f32, same math in another order
 

@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import init_model as jax_init_model
@@ -14,6 +15,12 @@ from repro.serve import PagedEngine as JaxPagedEngine
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.serve import PagedEngine
+
+# one intra-op thread: the test workers share the host's cores, and more
+# threads in each oversubscribe them (the port's files take ~78 s under
+# -n 6 with torch's default threads, ~50 s with one)
+torch.set_num_threads(1)
+
 
 SHRINK = dict(vocab_size=32, d_model=64, num_heads=4, num_kv_heads=2,
               head_dim=16, d_ff=128)
