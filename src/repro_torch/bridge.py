@@ -4,7 +4,8 @@ A JAX param pytree taken to numpy (``jax.tree.map(np.asarray, params)``)
 becomes the port's dict of tensors with the same keys, nesting, shapes
 and einsum layouts (``wq`` (d, H, hd), ``wo`` (H, hd, d), a leading layer
 axis on ``layers``), and back; an AdamW state the same way, so both
-packages can start from the same moments.
+packages can start from the same moments.  Leaves that JAX keeps in f32
+whatever the model's type (:data:`F32_LEAVES`) stay f32 under a cast.
 """
 from __future__ import annotations
 
@@ -28,12 +29,26 @@ def _to_tensor(a: Any, device: torch.device,
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
+# param names that JAX initializes in f32 whatever the model's type: the
+# MoE router (``models/moe.py`` ``init_moe``)
+F32_LEAVES = frozenset({"router"})
+
+
 def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """numpy leaves -> tensors on ``device`` (the card by default), cast to
-    ``dtype`` when given."""
+    ``dtype`` when given, except the :data:`F32_LEAVES`, which stay f32."""
     device = resolve_device(device)
-    return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
+
+    def leaf(key: str, a: Any) -> torch.Tensor:
+        f32 = dtype is not None and key in F32_LEAVES
+        return _to_tensor(a, device, torch.float32 if f32 else dtype)
+
+    def rec(node: Dict[str, Any]) -> Dict[str, Any]:
+        return {k: rec(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in node.items()}
+
+    return rec(tree)
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,7 +1,8 @@
-"""Architecture configs served by the port: the dense decoders only.
+"""Architecture configs served by the port: the dense decoders and the
+MoE family.
 
 Each module is a copy of its namesake in the JAX package's ``configs``;
-the MoE, SSM, hybrid, VLM and enc-dec configs arrive with their layouts.
+the SSM, hybrid, VLM and enc-dec configs arrive with their layouts.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ _MODULES = [
     "qwen2_5_7b",
     "stablelm_12b",
     "codeqwen1_5_7b",
+    "granite_moe_3b_a800m",
+    "llama4_scout_17b_a16e",
 ]
 
 _loaded = False

@@ -44,6 +44,12 @@ SIGNATURES = {
     # logits, gumbel, tok, lp, B, V, temperature, top_k, top_p,
     # vocab_size, stream
     "fused_sample_bv_launch": [_P] * 4 + [_I, _I, _F, _I, _F, _I, _P],
+    # a, w, w_up, out, rows, E, C, D, F, bf16, stream
+    "grouped_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
+    # x, idx, slot, counts, buf, T, k, d, E, C, bf16, stream
+    "moe_dispatch_launch": [_P] * 5 + [_I] * 6 + [_P],
+    # out, slot, gate, y, T, k, d, bf16, stream
+    "moe_combine_launch": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import sampling as _samp
 
@@ -51,3 +52,18 @@ def fused_sample(logits, gumbel, *, temperature: float = 1.0,
     fn = _samp.fused_sample_bv if _on_card(logits) else _samp.fused_sample_plain
     return fn(logits, gumbel, temperature=temperature, top_k=top_k,
               top_p=top_p, vocab_size=vocab_size)
+
+
+def grouped_matmul(buf, w, rows=None):
+    """out[e] = buf[e] @ w[e] over (E, C, D) x (E, D, F), summed in f32,
+    in buf's type; ``rows`` (E,) int32 limits each expert's rows."""
+    fn = _gmm.grouped_matmul if _on_card(buf) else _gmm.grouped_matmul_plain
+    return fn(buf, w, rows)
+
+
+def moe_decode(x, expert_idx, gate_vals, gate_w, up_w, down_w):
+    """Drop-free exact top-k decode FFN (token->expert gather + grouped
+    per-expert products + combine): x (T, d), expert_idx/gate_vals
+    (T, k), gate_w/up_w (E, d, f), down_w (E, f, d) -> (T, d)."""
+    fn = _gmm.moe_decode_gmm if _on_card(x) else _gmm.moe_decode_gmm_plain
+    return fn(x, expert_idx, gate_vals, gate_w, up_w, down_w)

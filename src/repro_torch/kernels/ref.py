@@ -91,3 +91,27 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens):
     # empty context (context_len == 0): zeros, not a softmax over the mask
     p = torch.where((context_lens > 0)[:, None, None], p, 0.0)
     return torch.einsum("bhs,bshd->bhd", p, vf).to(q.dtype)
+
+
+def grouped_matmul_ref(buf, w):
+    """buf (E, C, D) @ w (E, D, F) per expert, in f32 -> buf's type."""
+    return torch.einsum("ecd,edf->ecf", buf.float(), w.float()).to(buf.dtype)
+
+
+def moe_decode_ref(x, expert_idx, gate_vals, gate_w, up_w, down_w):
+    """Oracle for the grouped MoE decode GEMM: dense all-experts compute
+    plus the exact top-k combine matrix (no capacity, no drops).
+
+    x (T, d); expert_idx/gate_vals (T, k); gate_w/up_w (E, d, f);
+    down_w (E, f, d) -> (T, d)
+    """
+    T = x.shape[0]
+    E = gate_w.shape[0]
+    xf = x.float()
+    h = torch.nn.functional.silu(
+        torch.einsum("td,edf->tef", xf, gate_w.float())
+    ) * torch.einsum("td,edf->tef", xf, up_w.float())
+    all_out = torch.einsum("tef,efd->ted", h, down_w.float())
+    combine = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    combine.scatter_(1, expert_idx.long(), gate_vals.float())
+    return torch.einsum("te,ted->td", combine, all_out).to(x.dtype)

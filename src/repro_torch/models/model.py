@@ -1,5 +1,5 @@
-"""Model assembly for dense stacks: ``init_model`` and the full-sequence
-``forward`` (logprob recompute and training).
+"""Model assembly for dense and MoE stacks: ``init_model`` and the
+full-sequence ``forward`` (logprob recompute and training).
 
 Per-layer params carry a leading layer axis, as in the JAX package's
 scan-stacked pytree, so bridged weights keep their keys and shapes; the
@@ -9,14 +9,16 @@ serving runs through :mod:`repro_torch.serve.layouts`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     Params,
     embed,
@@ -41,23 +43,36 @@ def _init_attn_layer(gen, cfg: ModelConfig, dtype, device, *,
     }
 
 
+def _init_moe_layer(gen, cfg: ModelConfig, dtype, device, *,
+                    lead=()) -> Params:
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dtype, device, lead=lead),
+        "attn": attn.init_attention(gen, cfg, dtype, device, lead=lead),
+        "ln2": init_rmsnorm(cfg.d_model, dtype, device, lead=lead),
+        "moe": moe_mod.init_moe(gen, cfg, dtype, device, lead=lead),
+    }
+
+
+_LAYER_INIT = {DENSE: _init_attn_layer, MOE: _init_moe_layer}
+
+
 def init_model(gen: Optional[torch.Generator], cfg: ModelConfig,
                dtype=torch.float32, device: DeviceLike = None) -> Params:
     """Random weights for ``cfg`` on ``device`` (the card by default),
     drawn from ``gen``, a generator on that device (seed 0 when None)."""
     cfg.validate()
-    if cfg.kind != DENSE:
+    if cfg.kind not in _LAYER_INIT:
         raise NotImplementedError(
-            f"repro_torch.init_model ports the dense kind only, not "
-            f"{cfg.kind}")
+            f"repro_torch.init_model ports the dense and MoE kinds only, "
+            f"not {cfg.kind}")
     device = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
     p: Params = {"embed": init_embedding(gen, cfg, dtype, device),
                  "ln_f": init_rmsnorm(cfg.d_model, dtype, device)}
-    p["layers"] = _init_attn_layer(gen, cfg, dtype, device,
-                                   lead=(cfg.num_layers,))
+    p["layers"] = _LAYER_INIT[cfg.kind](gen, cfg, dtype, device,
+                                        lead=(cfg.num_layers,))
     return p
 
 
@@ -87,28 +102,46 @@ def _attn_layer_fwd(lp: Params, cfg: ModelConfig, x, *, causal=True,
     return x
 
 
+def _moe_layer_fwd(lp: Params, cfg: ModelConfig, x, *, window=0):
+    h = attn.attention(lp["attn"], cfg, rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                       causal=True, window=window)
+    x = x + h
+    y, aux = moe_mod.moe_block(lp["moe"], cfg,
+                               rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return x + y, aux
+
+
+def _layer_fwd(lp: Params, cfg: ModelConfig, x, *, window=0):
+    """One layer of a dense or MoE stack: (x, the layer's aux loss or
+    None)."""
+    if cfg.kind == MOE:
+        return _moe_layer_fwd(lp, cfg, x, window=window)
+    return _attn_layer_fwd(lp, cfg, x, window=window), None
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             extra=None, *, remat: bool = False, return_hidden: bool = False):
     """Returns (logits (B, S, padded_vocab), aux_loss scalar), plus the
     final hidden state when ``return_hidden``.
 
     remat=True checkpoints each layer (activations recomputed in the
-    backward pass).  The JAX ``act_spec`` (sequence-parallel sharding) has
+    backward pass).  An MoE stack sums each layer's aux loss, as JAX's
+    scan carries it.  The JAX ``act_spec`` (sequence-parallel sharding) has
     no counterpart on one card.
     """
-    if cfg.kind != DENSE:
+    if cfg.kind not in _LAYER_INIT:
         raise NotImplementedError(
-            f"repro_torch.forward ports the dense kind only, not {cfg.kind}")
+            f"repro_torch.forward ports the dense and MoE kinds only, not "
+            f"{cfg.kind}")
     x = embed(params["embed"], tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    w = cfg.sliding_window
     for lp in unstack_layers(params["layers"]):
-        if remat:
-            x = checkpoint(lambda h, lp=lp: _attn_layer_fwd(lp, cfg, h,
-                                                            window=w),
-                           x, use_reentrant=False)
-        else:
-            x = _attn_layer_fwd(lp, cfg, x, window=w)
+        body = functools.partial(_layer_fwd, lp, cfg,
+                                 window=cfg.sliding_window)
+        x, a = (checkpoint(body, x, use_reentrant=False) if remat
+                else body(x))
+        if a is not None:
+            aux = aux + a
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if return_hidden:
         return unembed(params["embed"], x), aux, x

@@ -4,6 +4,7 @@ from repro_torch.serve.engine import (  # noqa: F401
 )
 from repro_torch.serve.layouts import (  # noqa: F401
     CacheLayout,
+    MoEPagedKVLayout,
     PagedKVLayout,
     covers,
     layout_class,

@@ -136,6 +136,7 @@ class PagedEngine:
         self.finished_log: deque = deque(maxlen=4096)
         self.decode_steps = 0  # engine steps taken
         self.decode_batches = 0  # of which ran the fixed-shape decode batch
+        self.prefill_chunks = 0  # fixed-shape prefill-chunk forwards
 
     @property
     def cache(self):
@@ -376,6 +377,7 @@ class PagedEngine:
                        else r.generated[pos - r.prompt_len])
             poss[i] = pos
         self.layout.prefill_chunk_step(self.params, toks, poss, grant, r)
+        self.prefill_chunks += 1
         r.num_cached = end
         r.last_weight_version = self.weight_version
         if r.pages:

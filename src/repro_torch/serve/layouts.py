@@ -1,5 +1,5 @@
-"""Cache layouts behind the serve-tier interface.  This slice ports the
-paged-KV layout of dense attention stacks.
+"""Cache layouts behind the serve-tier interface.  The port has the
+paged-KV layout of dense attention stacks and its MoE variant.
 
 The continuous-batching engine (:class:`repro_torch.serve.engine.PagedEngine`)
 is host-side scheduling over a device cache whose shape depends on the
@@ -21,12 +21,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import additive_mask, qkv_project, sdpa
 from repro_torch.models.layers import apply_rope, embed, mlp, rmsnorm, unembed
 from repro_torch.models.model import layer_params
+from repro_torch.models.moe import moe_decode_exact
 from repro_torch.serve.paging import (
     TRASH_PAGE,
     PagedKVCache,
@@ -255,15 +256,33 @@ class PagedKVLayout(CacheLayout):
         self._cow_impl(self.cache.k, self.cache.v, src, dst)
 
 
+class MoEPagedKVLayout(PagedKVLayout):
+    """Paged KV pool with the FFN half routed through the exact top-k
+    expert combine.  Capacity dispatch (the training path) depends on the
+    batch (a token's drops depend on who else is in the decode batch),
+    which would break the scheduling-invariance contract, so serving
+    always uses the drop-free per-token combine, ``ops.moe_decode``: the
+    grouped per-expert kernels on the card, once per layer in every decode
+    step and every prefill chunk."""
+
+    name = "paged-kv-moe"
+
+    def _ffn(self, lp, h):
+        return moe_decode_exact(lp["moe"], self.cfg, h)
+
+
 # ===========================================================================
 # Registry
 # ===========================================================================
+_LAYOUTS = {DENSE: PagedKVLayout, MOE: MoEPagedKVLayout}
+
+
 def layout_class(cfg: ModelConfig):
-    """The layout class serving ``cfg``, or None when uncovered (this
-    slice covers dense stacks without a sliding window)."""
-    if cfg.kind == DENSE and not cfg.sliding_window:
-        return PagedKVLayout
-    return None
+    """The layout class serving ``cfg``, or None when uncovered (the port
+    covers dense and MoE stacks without a sliding window)."""
+    if cfg.sliding_window:
+        return None
+    return _LAYOUTS.get(cfg.kind)
 
 
 def covers(cfg: ModelConfig) -> bool:

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as gmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
@@ -67,6 +68,7 @@ def _paged_inputs(seed, B, H, KV, D, page, nb, dtype, dev):
     (4, 6, 2, 32, 4, 5),     # 3-way GQA groups
     (3, 16, 2, 64, 2, 40),   # 2-token pages, 80-token tables
     (8, 32, 4, 128, 16, 9),  # yi-9b heads
+    (8, 24, 8, 64, 16, 36),  # granite-moe-3b-a800m heads (3-way GQA)
 ])
 def test_paged_attention_kernel_matches_plain(dev, B, H, KV, D, page, nb,
                                               dtype):
@@ -209,6 +211,8 @@ FLASH_CASES = [
     (2, 32, 4, 1000, 128, True, 256),  # yi-9b heads, tail + window
     (16, 32, 4, 512, 128, True, 0),    # yi-9b logprob recompute
     (2, 32, 4, 1024, 128, True, 0),    # yi-9b train microbatch
+    (16, 24, 8, 512, 64, True, 0),     # granite logprob recompute
+    (2, 24, 8, 1024, 64, True, 0),     # granite train microbatch
 ]
 
 
@@ -310,3 +314,166 @@ def test_forward_and_policy_grads_card_vs_cpu(dev, remat):
     assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) + 1e-6
     for a, b in zip(gg, gc):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-7
+
+
+def test_moe_forward_and_policy_grads_card_vs_cpu(dev):
+    """Reduced granite-moe in f32 from the same weights: logits, aux and
+    every gradient of the policy loss (router and experts among them) on
+    the card against the CPU.  The capacity dispatch of ``moe_block`` runs
+    on both; f32 on both sides, so only the summation order differs."""
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    cpu = init_model(torch.Generator().manual_seed(8), cfg, torch.float32,
+                     "cpu")
+    rng = np.random.default_rng(8)
+    B, S = 2, 70
+    mask = np.zeros((B, S), np.float32)
+    mask[:, 20:] = 1.0
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                                     (B, S))),
+             "old_logprobs": torch.full((B, S), -6.0),
+             "advantages": torch.from_numpy(
+                 rng.standard_normal((B, S)).astype(np.float32) * mask),
+             "loss_mask": torch.from_numpy(mask)}
+    hp = TrainHParams(entropy_coef=0.01)
+    out = []
+    for device in ("cpu", dev):
+        params = tree_map(lambda t: t.to(device).requires_grad_(), cpu)
+        mb = {k: v.to(device) for k, v in batch.items()}
+        loss, m = policy_loss(cfg, hp, params, mb)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out.append((float(loss.detach()), float(m["aux_loss"].detach()),
+                    [g.cpu() for g in grads]))
+    (loss_c, aux_c, gc), (loss_g, aux_g, gg) = out
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) + 1e-6
+    assert abs(aux_g - aux_c) <= 1e-5 * abs(aux_c) and aux_c > 0
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-7
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: grouped matmul and the drop-free MoE decode
+# ---------------------------------------------------------------------------
+# relative to the largest |out|.  f32: summation order only.  bf16: both
+# round f32 sums that differ only in order to bf16 (2**-8 relative), and
+# K5's rounded intermediates (g, u, silu(g) * u) carry such an ulp into
+# the down product.
+GMM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F,ragged", [
+    (40, 8, 1536, 512, False),    # granite decode: gate / up
+    (40, 8, 512, 1536, False),    # granite decode: down
+    (40, 256, 1536, 512, True),   # granite prefill chunk, with row counts
+    (40, 256, 512, 1536, True),
+    (3, 13, 100, 70, True),       # nothing divides a tile or a vector
+    (2, 1, 7, 5, False),
+])
+def test_grouped_matmul_kernel_matches_plain(dev, E, C, D, F, ragged, dtype):
+    rng = np.random.default_rng(E * C + D)
+    buf = torch.from_numpy(rng.standard_normal((E, C, D), np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, D, F), np.float32)
+                         / np.sqrt(D))
+    buf, w = buf.to(dev, dtype), w.to(dev, dtype)
+    rows = None
+    if ragged:  # some experts empty, some full, the rest in between
+        r = rng.integers(0, C + 1, size=E)
+        r[0], r[-1] = 0, C
+        rows = torch.from_numpy(r.astype(np.int32)).to(dev)
+    got = gmm.grouped_matmul(buf, w, rows)
+    want = gmm.grouped_matmul_plain(buf, w, rows)
+    oracle = ref.grouped_matmul_ref(buf, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (E, C, F)
+    live = (torch.ones((E, C), dtype=torch.bool, device=dev) if rows is None
+            else torch.arange(C, device=dev)[None] < rows.long()[:, None])
+    assert torch.isfinite(got[live]).all()
+    assert _rel_err(got[live], want[live]) <= GMM_RTOL[dtype]
+    assert _rel_err(got[live], oracle[live]) <= GMM_RTOL[dtype]
+
+
+def test_grouped_matmul_rows_are_neither_read_nor_written(dev):
+    """Rows past the count are never read: NaNs there never reach a live
+    row, and an expert with no rows is skipped."""
+    E, C, D, F = 4, 16, 64, 32
+    buf = torch.randn((E, C, D), device=dev)
+    w = torch.randn((E, D, F), device=dev) / 8
+    rows = torch.tensor([3, 0, 16, 9], dtype=torch.int32, device=dev)
+    for e, r in enumerate(rows.tolist()):
+        buf[e, r:] = float("nan")
+    got = gmm.grouped_matmul(buf, w, rows)
+    want = gmm.grouped_matmul_plain(buf.nan_to_num(), w, rows)
+    for e, r in enumerate(rows.tolist()):
+        if r:
+            assert _rel_err(got[e, :r], want[e, :r]) <= 1e-5
+
+
+def _moe_inputs(seed, T, E, k, d, f, dtype, dev, same=False):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((T, d), np.float32))
+    ws = [torch.from_numpy(rng.standard_normal(s, np.float32)
+                           / np.sqrt(s[1]))
+          for s in ((E, d, f), (E, d, f), (E, f, d))]
+    if same:
+        idx = np.tile(np.arange(k), (T, 1))
+    else:
+        idx = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+    gate = rng.dirichlet(np.ones(k), size=T).astype(np.float32)
+    return (x.to(dev, dtype), torch.from_numpy(idx).to(dev),
+            torch.from_numpy(gate).to(dev), *(w.to(dev, dtype) for w in ws))
+
+
+MOE_CASES = [
+    (8, 40, 8, 1536, 512, False),    # granite decode step
+    (256, 40, 8, 1536, 512, False),  # granite prefill chunk
+    (8, 40, 8, 1536, 512, True),     # every token on experts 0-7
+    (1, 4, 2, 64, 32, False),
+    (160, 6, 3, 60, 44, False),      # capacity 256, no vector loads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,k,d,f,same", MOE_CASES)
+def test_moe_decode_kernel_matches_plain(dev, T, E, k, d, f, same, dtype):
+    args = _moe_inputs(T + E, T, E, k, d, f, dtype, dev, same)
+    got = gmm.moe_decode_gmm(*args)
+    want = gmm.moe_decode_gmm_plain(*args)
+    oracle = ref.moe_decode_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (T, d)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) <= GMM_RTOL[dtype]
+    assert _rel_err(got, oracle) <= GMM_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [8, 256])
+def test_moe_decode_kernel_is_batch_invariant_bitwise(dev, T, dtype):
+    """A token's output is the same bits alone as inside a batch of T (a
+    decode batch of 8, a prefill chunk of 256): no row's sum depends on
+    the capacity, the tile or its neighbours."""
+    x, idx, gate, *ws = _moe_inputs(T, T, 40, 8, 1536, 512, dtype, dev)
+    full = gmm.moe_decode_gmm(x, idx, gate, *ws)
+    for i in (0, 3, T - 1):
+        alone = gmm.moe_decode_gmm(x[i:i + 1], idx[i:i + 1], gate[i:i + 1],
+                                   *ws)
+        assert torch.equal(alone[0], full[i]), i
+
+
+def test_moe_launch_counters(dev):
+    x, idx, gate, *ws = _moe_inputs(0, 4, 6, 2, 64, 32, torch.float32, dev)
+    g0, m0 = gmm.grouped_matmul.launches, gmm.moe_decode_gmm.launches
+    gmm.moe_decode_gmm_plain(x, idx, gate, *ws)
+    gmm.grouped_matmul_plain(ws[0], ws[2])
+    assert (gmm.grouped_matmul.launches, gmm.moe_decode_gmm.launches) == \
+        (g0, m0)
+    gmm.moe_decode_gmm(x, idx, gate, *ws)  # gate/up and down: two K4 launches
+    assert gmm.moe_decode_gmm.launches == m0 + 1
+    assert gmm.grouped_matmul.launches == g0 + 2
+    ops.grouped_matmul(ws[0], ws[2])
+    assert gmm.grouped_matmul.launches == g0 + 3

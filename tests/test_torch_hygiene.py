@@ -57,6 +57,7 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch.serve, repro_torch.bridge, repro_torch.models\n"
+        "import repro_torch.models.moe, repro_torch.kernels.moe_gmm\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.train, repro_torch.rl.advantage\n"
         "import repro_torch.utils.treeutil\n"
@@ -91,7 +92,8 @@ def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["ops.py", "paged_attention.py",
-                                    "sampling.py", "flash_attention.py"])
+                                    "sampling.py", "flash_attention.py",
+                                    "moe_gmm.py"])
 def test_kernel_dispatch_has_no_fallback(module):
     tree = ast.parse((PORT / "kernels" / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]

@@ -1,5 +1,6 @@
 """Port layers, attention and init against the JAX package on the same
 inputs (made from a seed with numpy) and the same bridged weights."""
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,12 +41,13 @@ def rng():
 
 
 def test_config_registry_matches_jax():
-    assert tconfigs.list_archs() == sorted(DENSE)
-    for name in DENSE:
-        assert tconfigs.get_config(name).__dict__ == \
-            jax_get_config(name).__dict__
-        assert tconfigs.get_config(name).reduced().__dict__ == \
-            jax_get_config(name).reduced().__dict__
+    ported = sorted(DENSE + ["granite-moe-3b-a800m", "llama4-scout-17b-a16e"])
+    assert tconfigs.list_archs() == ported
+    for name in ported:  # asdict: the MoE block is a dataclass of its own
+        assert dataclasses.asdict(tconfigs.get_config(name)) == \
+            dataclasses.asdict(jax_get_config(name))
+        assert dataclasses.asdict(tconfigs.get_config(name).reduced()) == \
+            dataclasses.asdict(jax_get_config(name).reduced())
 
 
 def test_rmsnorm_matches_jax(rng):
