@@ -8,31 +8,41 @@ Run from the repository root with no arguments:
 Phases, one line of output each (more for the kernels):
   1. header     the card's name and power limit, and the kernel build time;
   2. kernels    each hand-written kernel against its plain PyTorch version
-                at the two models' shapes, with CUDA-event timings: paged
-                attention and sampling (decode), flash attention forward
-                and backward (checked at B=4 with a tail and a window, then
+                at the four models' shapes, with CUDA-event timings: paged
+                attention and sampling (decode; sampling also at mamba2's
+                and zamba2's vocabularies), flash attention forward and
+                backward (checked at B=4 with a tail and a window, then
                 checked and timed at the recompute's and the train
-                microbatch's shapes), the grouped expert matmul and the
-                drop-free MoE decode (granite-moe's decode and prefill
-                shapes, batch invariance bitwise);
-  3. ref        a reduced yi-9b and a reduced granite-moe served on the
+                microbatch's shapes, zamba2's D=80 heads and window among
+                them), the grouped expert matmul and the drop-free MoE
+                decode (granite-moe's decode and prefill shapes, batch
+                invariance bitwise), the SSD chunked scan forward and
+                backward (mamba2's and zamba2's recompute and train
+                microbatch shapes, a ragged length) and the one-token SSD
+                state update (their decode shapes);
+  3. ref        reduced yi-9b, granite-moe, mamba2 and zamba2 served on the
                 card and on the CPU from the same weights: the same tokens;
   4. ref-train  the same reduced models in f32: recomputed logprobs and one
                 train step (two microbatches) on the card against the CPU,
-                and (yi-9b) the engine's logprobs against the recompute;
-then for yi-9b (48 layers, 8 trained) and granite-moe-3b-a800m (32
-layers, 16 trained), each from random weights:
-  5. serve      the model at full width in bf16 through ``PagedEngine``:
-                16 requests, tokens/s, and the kernels' launch counters set
+                and (all but the MoE) the engine's logprobs against the
+                recompute;
+then for yi-9b (48 layers, 8 trained), granite-moe-3b-a800m (32 layers, 16
+trained), mamba2-370m (48 SSM layers, all trained) and zamba2-2.7b (54 SSM
+layers in 9 groups with a shared attention block, 24 trained), each from
+random weights:
+  5. serve      the model at full width in bf16 through ``PagedEngine``
+                (paged KV, or the state cache for SSM and hybrid): 16
+                requests, tokens/s, and the kernels' launch counters set
                 to 0 before the run and gated exactly after it;
   6. greedy     the same requests twice at temperature 0: identical tokens;
   7. recompute  16 rollouts of 448 + 64 tokens from the engine, scored by
                 ``make_prefill_step`` at full depth: tokens/s (median of
-                five passes), flash launches, and the train-inference
-                logprob mismatch, gated;
-  8. train      the model at full width cut in depth, f32 params and AdamW:
-                three GRPO steps of 4 x 1024 tokens in two microbatches,
-                step time, peak memory and flash launches per step.
+                five passes), flash and SSD-scan launches, and the
+                train-inference logprob mismatch, gated;
+  8. train      the model at full width, depth cut where needed, f32 params
+                and AdamW: three GRPO steps of 4 x 1024 tokens in two
+                microbatches, step time, peak memory and kernel launches
+                per step.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before it a JSON object with every kernel's numbers, and
@@ -89,6 +99,17 @@ def time_ms(fn, reps: int = 5, n: int = 20) -> float:
         end.synchronize()
         means.append(start.elapsed_time(end) / n)
     return statistics.median(means)
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time of one call of ``fn``: the sum over its CUDA kernels
+    under ``torch.profiler``, the mean of ``n`` calls after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return sum(t for _, t, _ in profiled(fn, n)) * 1e3
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
@@ -563,6 +584,275 @@ def check_moe_decode(results: dict) -> None:
                 bound_by=by, library_ms=None)
 
 
+MAMBA2_SSD = (32, 64, 128)  # SSD heads, head_dim, state size
+ZAMBA2_SSD = (80, 64, 64)
+ZAMBA2_HEADS = (32, 32, 80)  # the shared attention block's (H, KV, D)
+# K6 and K7 against their plain versions, relative to the largest |value|.
+# K6 f32: the kernel and the plain version take the same prefix sums (f64,
+# rounded per position) and exps and sum the products in other orders;
+# bf16: y rounded once from those f32 sums; grads the same way.  K7: f32
+# arithmetic on both sides, one FMA apart.
+SSD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSU_RTOL = 1e-5
+
+
+def ssd_inputs(g, B, L, heads, dtype):
+    """Model-layout K6 inputs at ``heads`` = (H, P, N): x and B, C in
+    ``dtype``, dt a softplus of a standard normal, A as ``init_mamba2``
+    makes it (-1 .. -16 across the heads), D near 1."""
+    import torch
+    import torch.nn.functional as F
+
+    H, P, N = heads
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    return (r(B, L, H, P).to(dtype), F.softplus(r(B, L, H)),
+            -torch.linspace(1.0, 16.0, H, device="cuda"),
+            (0.5 * r(B, L, N)).to(dtype), (0.5 * r(B, L, N)).to(dtype),
+            1.0 + 0.1 * r(H))
+
+
+def ssd_plain(x, dt, A, Bm, Cm, D, chunk):
+    """``ops.ssd_scan``'s padding and layout change around the plain
+    version (what the ops wrapper does on a CPU tensor)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-L) % chunk
+    x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                     for t in (x, dt, Bm, Cm))
+    nc = (L + pad) // chunk
+    y = ssd.ssd_scan_plain(
+        x.reshape(B, nc, chunk, H, P).permute(0, 3, 1, 2, 4),
+        dt.reshape(B, nc, chunk, H).permute(0, 3, 1, 2), A.expand(B, H),
+        Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
+        D.expand(B, H))
+    return y.permute(0, 2, 3, 1, 4).reshape(B, L + pad, H, P)[:, :L]
+
+
+def ssd_work(B, L, heads, chunk, dtype):
+    """(bytes, flops) of K6 forward and backward at one shape: each input
+    read once and each output written once; the products the function
+    needs (C B^T once per batch row and chunk, shared by the heads; the
+    causal half of the (s, s) products; the (s, P, N) state products)."""
+    import torch
+
+    H, P, N = heads
+    elem = torch.finfo(dtype).bits // 8
+    nc = -(-L // chunk)
+    tri = chunk * (chunk + 1) // 2
+    x_b, bc_b, dt_b = B * L * H * P * elem, 2 * B * L * N * elem, B * L * H * 4
+    cb = 2 * B * nc * chunk * chunk * N
+    per = B * H * nc
+    fwd = (2 * x_b + bc_b + dt_b,
+           cb + per * (2 * tri * P + 4 * chunk * P * N))
+    # backward: reads x, dt, B, C, dy; writes dx, ddt, dB, dC.  Products:
+    # C B^T, the forward's state recurrence, dM = g x^T and M^T g (causal),
+    # dCB B and dCB^T C (causal), and four (s, P, N) state products
+    bwd = (2 * (2 * x_b + bc_b + dt_b),
+           cb + per * (4 * tri * P + 4 * tri * N + 10 * chunk * P * N))
+    return fwd, bwd
+
+
+def check_ssd_scan(results: dict) -> None:
+    """K6 forward against its plain version through ``ops.ssd_scan`` on
+    model-layout views: at each model's recompute shape (16 x 512, bf16),
+    the train microbatch's (2 x 1024, f32) and a ragged length (300,
+    padded to 384); the backward at the train microbatch's shape, every
+    gradient against autograd of the plain version.  Timed beside the
+    plain version and the bound; no single PyTorch call computes the
+    scan."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    chunk = 128
+    common = dict(route="cuda", launches=0, library_ms=None,
+                  replaces="src/repro/kernels/ssd_scan.py:74")
+    for arch, heads in (("mamba2-370m", MAMBA2_SSD),
+                        ("zamba2-2.7b", ZAMBA2_SSD)):
+        for dtype, B, L, timed in ((torch.bfloat16, 16, 512, True),
+                                   (torch.float32, 2, 1024, True),
+                                   (torch.bfloat16, 2, 300, False),
+                                   (torch.float32, 2, 300, False)):
+            name = str(dtype).split(".")[-1]
+            args = ssd_inputs(g, B, L, heads, dtype)
+            with torch.no_grad():
+                got = ops.ssd_scan(*args, chunk)
+                want = ssd_plain(*args, chunk)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), f"ssd_scan {arch}: non-finite"
+            err, rel = (got.float() - want.float()).abs().max().item(), \
+                rel_err(got, want)
+            tol = SSD_RTOL[name]
+            tag = (f"ssd_scan {arch} {name} B={B} L={L} H={heads[0]} "
+                   f"P={heads[1]} N={heads[2]} chunk={chunk}")
+            assert rel <= tol, f"{tag}: max|err|/max|y| {rel} > {tol}"
+            line = f"kernels: {tag}: fwd max|err|/max|y|={rel:.3g} (tol {tol})"
+            if not timed:
+                log(line + " (padded to a chunk multiple)")
+                continue
+            with torch.no_grad():
+                ms = time_ms(lambda: ops.ssd_scan(*args, chunk))
+                plain_ms = time_ms(lambda: ssd_plain(*args, chunk), n=5)
+            (fb, fo), (bb, bo) = ssd_work(B, L, heads, chunk, dtype)
+            fwd_bound, fwd_by = bound_ms(fb, fo, name)
+            line += (f"; fwd kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+                     f"bound={fwd_bound:.4f} ms ({fwd_by}); library: none")
+            if dtype == torch.bfloat16:  # the recompute's shape and type
+                log(line)
+                if arch == "mamba2-370m":
+                    results["ssd_scan"] = dict(
+                        common, name="ssd_scan_bhcsp",
+                        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=fwd_bound, bound_by=fwd_by)
+                continue
+            # the train microbatch: the backward, every gradient
+            dy = torch.randn(args[0].shape, generator=g, device="cuda")
+            grads = []
+            for fn in (ops.ssd_scan, ssd_plain):
+                leaves = [t.detach().clone().requires_grad_() for t in args]
+                y = fn(*leaves, chunk)
+                grads.append((y, leaves,
+                              torch.autograd.grad(y, leaves, dy,
+                                                  retain_graph=True)))
+            torch.cuda.synchronize()
+            rels = []
+            for gname, a, b in zip(("x", "dt", "A", "Bm", "Cm", "D"),
+                                   grads[0][2], grads[1][2]):
+                assert torch.isfinite(a).all(), f"{tag} d{gname} non-finite"
+                rels.append(rel_err(a, b))
+                assert rels[-1] <= tol, (
+                    f"{tag} bwd d{gname}: max|err|/max|grad| {rels[-1]} > "
+                    f"{tol}")
+            gerr = max((a - b).abs().max().item()
+                       for a, b in zip(grads[0][2], grads[1][2]))
+            (ky, kl, _), (py, pl, _) = grads
+            bwd_ms = time_ms(lambda: torch.autograd.grad(ky, kl, dy,
+                                                         retain_graph=True))
+            plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                py, pl, dy, retain_graph=True), n=5)
+            bwd_bound, bwd_by = bound_ms(bb, bo, name)
+            log(f"{line}; bwd max|err|/max|grad| "
+                + " ".join(f"d{n} {r:.3g}" for n, r in
+                           zip(("x", "dt", "A", "Bm", "Cm", "D"), rels))
+                + f" (tol {tol}); bwd kernel={bwd_ms:.4f} ms plain="
+                f"{plain_bwd_ms:.4f} ms bound={bwd_bound:.4f} ms ({bwd_by}); "
+                f"library: none")
+            if arch == "mamba2-370m":
+                results["ssd_scan_bwd"] = dict(
+                    common, name="ssd_scan_bwd",
+                    source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                    max_abs_err=gerr, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                    bound_ms=bwd_bound, bound_by=bwd_by)
+            del grads, ky, kl, py, pl
+            torch.cuda.empty_cache()
+
+
+def check_ssm_update(results: dict) -> None:
+    """K7 against its plain version at mamba2's and zamba2's decode shapes
+    (B=8), f32 state, with f32 inputs (as ``mamba2_decode`` passes them:
+    the JSON entry is mamba2's) and bf16 ones; timed over enough states to
+    exceed the 50 MB L2, as 48 layers' states do."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_update as ssu
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    B = 8
+    for arch, (H, P, N) in (("mamba2-370m", MAMBA2_SSD),
+                            ("zamba2-2.7b", ZAMBA2_SSD)):
+        n_states = max(1, math.ceil(128e6 / (B * H * P * N * 4)))
+        states = [torch.randn((B, H, P, N), generator=g, device="cuda")
+                  for _ in range(n_states)]
+        A = -torch.linspace(1.0, 16.0, H, device="cuda")
+        D = torch.ones(H, device="cuda")
+        dt = F.softplus(torch.randn((B, H), generator=g, device="cuda"))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = torch.randn((B, H, P), generator=g, device="cuda").to(dtype)
+            Bm, Cm = ((0.5 * torch.randn((B, N), generator=g, device="cuda"))
+                      .to(dtype) for _ in range(2))
+            y, new = ops.ssm_state_update(states[0], x, dt, A, Bm, Cm, D)
+            wy, ws = ssu.ssm_state_update_plain(
+                states[0], x, dt, A.expand(B, H), Bm, Cm, D.expand(B, H))
+            torch.cuda.synchronize()
+            rel = max(rel_err(y, wy), rel_err(new, ws))
+            err = max((y - wy).abs().max().item(),
+                      (new - ws).abs().max().item())
+            tag = f"ssm_state_update {arch} {name} B={B} H={H} P={P} N={N}"
+            assert rel <= SSU_RTOL, f"{tag}: max|err|/max|out| {rel}"
+            it = iter(range(1 << 30))
+
+            def kernel():
+                ops.ssm_state_update(states[next(it) % n_states], x, dt, A,
+                                     Bm, Cm, D)
+
+            def plain():
+                ssu.ssm_state_update_plain(
+                    states[next(it) % n_states], x, dt, A.expand(B, H), Bm,
+                    Cm, D.expand(B, H))
+
+            # the kernel runs for less time than its Python wrapper takes
+            # to launch it, so back-to-back calls between two events time
+            # the host; the profiler's device time is the kernel's own
+            call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            elem = torch.finfo(dtype).bits // 8
+            nbytes = (2 * B * H * P * N * 4 + B * H * P * (elem + 4)
+                      + 2 * B * N * elem + 3 * B * H * 4)
+            bms, by = bound_ms(nbytes, 4 * B * H * P * N, "float32")
+            log(f"kernels: {tag} (state f32): max|err|/max|out|={rel:.3g} "
+                f"(tol {SSU_RTOL}) device time: kernel={ms:.4f} ms plain="
+                f"{plain_ms:.4f} ms; event-timed calls: kernel={call_ms:.4f} "
+                f"ms plain={plain_call_ms:.4f} ms; bound={bms:.4f} ms ({by}); "
+                f"library: none")
+            if arch == "mamba2-370m" and dtype == torch.float32:
+                results["ssm_update"] = dict(
+                    name="ssm_state_update_bh", route="cuda",
+                    source="src/repro_torch/kernels/csrc/ssm_update.cu",
+                    replaces="src/repro/kernels/ssm_update.py:50",
+                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None)
+        del states
+        torch.cuda.empty_cache()
+
+
+def check_flash_zamba2() -> None:
+    """K3 at zamba2's shared attention heads (MHA, D 80) with its window
+    4096: the recompute's forward (16 x 512, bf16) and the train
+    microbatch's forward and backward (2 x 1024, f32), timed."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for dtype, B, S, backward in ((torch.bfloat16, 16, 512, False),
+                                  (torch.float32, 2, 1024, True)):
+        c = flash_case(g, dtype, B, S, 4096, backward, ZAMBA2_HEADS)
+        q, k, v = c["q"], c["k"], c["v"]
+        kw = dict(causal=True, window=4096)
+        ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, **kw))
+        line = f"{c['line']}; fwd kernel={ms:.4f} ms"
+        if backward:
+            bms = time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, c["out"], c["lse"], c["dout"], **kw))
+            line += f"; bwd kernel={bms:.4f} ms"
+        log(line + " (zamba2-2.7b shared attention)")
+        del c
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: a small model on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -707,7 +997,8 @@ def check_ref_train(arch: str = "yi-9b") -> None:
 # ---------------------------------------------------------------------------
 # phases 5-6: yi-9b at full width
 # ---------------------------------------------------------------------------
-def serve_once(cfg, params, prompts, *, temperature, top_k, top_p):
+def serve_once(cfg, params, prompts, *, temperature, top_k, top_p,
+               warm: bool = True):
     import torch
 
     from repro_torch.serve import PagedEngine
@@ -717,49 +1008,83 @@ def serve_once(cfg, params, prompts, *, temperature, top_k, top_p):
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       eos_token=-1, dtype=torch.bfloat16, device="cuda")
     eng.set_params(params)
-    eng.submit(prompts[0][:64], max_new_tokens=4, seed=99)  # warm-up
-    eng.run()
-    torch.cuda.synchronize()
+    if warm:  # before a timed run
+        eng.submit(prompts[0][:64], max_new_tokens=4, seed=99)
+        eng.run()
+        torch.cuda.synchronize()
     return eng
 
 
 def serve(cfg, params, prompts, results: dict) -> None:
     """The serve workload through ``PagedEngine.run``, with the kernels'
     launch counters set to 0 just before and read just after, and gated
-    exactly: K1 once per layer per decode batch, K2 once per decode
-    batch; for an MoE stack K5 once per layer per decode batch and per
-    prefill chunk, and K4 twice per K5 call."""
+    exactly: K2 once per decode batch; on a paged layout K1 once per layer
+    per decode batch, and for an MoE stack K5 once per layer per decode
+    batch and per prefill chunk, and K4 twice per K5 call; on the state
+    layout (SSM, hybrid) K7 once per SSM layer per engine step, which is
+    one decode batch (prompts go through it a token a step), and K1, K4,
+    K5 never."""
     import torch
 
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import ssm_update as ssu
     from repro_torch.utils.treeutil import tree_leaves
 
     eng = serve_once(cfg, params, prompts, temperature=1.0, top_k=50,
                      top_p=0.9)
     reqs = [eng.submit(p, seed=SEED + i) for i, p in enumerate(prompts)]
-    b0, c0 = eng.decode_batches, eng.prefill_chunks
+    b0, c0, s0 = eng.decode_batches, eng.prefill_chunks, eng.decode_steps
     pa.paged_attention_bhd.launches = 0
     ks.fused_sample_bv.launches = 0
     gmm.grouped_matmul.launches = 0
     gmm.moe_decode_gmm.launches = 0
+    ssu.ssm_state_update_bh.launches = 0
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = pa.paged_attention_bhd.launches, ks.fused_sample_bv.launches
     k4, k5 = gmm.grouped_matmul.launches, gmm.moe_decode_gmm.launches
+    k7 = ssu.ssm_state_update_bh.launches
     batches = eng.decode_batches - b0
     chunks = eng.prefill_chunks - c0
+    steps = eng.decode_steps - s0
     for r in reqs:
         assert len(r.generated) == 64, (r.rid, len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated), r.rid
         assert all(math.isfinite(x) and x <= 1e-3 for x in r.logprobs), r.rid
     L = cfg.num_layers
+    n_tok = sum(len(r.generated) for r in reqs)
+    n_prompt = sum(len(p) for p in prompts)
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    head = (f"serve: {cfg.name} full width ({L} layers, d={cfg.d_model}, "
+            f"bf16, {gb:.2f} GB) {len(reqs)} requests, {n_prompt} prompt + "
+            f"{n_tok} generated tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+            f"generated tok/s; ")
+    assert k2 == batches, (k2, batches)
+    results["fused_sample"]["launches"] += k2
+    if cfg.ssm is not None:  # the state cache layout
+        assert batches == steps > 0 and chunks == 0, (batches, steps, chunks)
+        assert k7 == L * steps, (k7, steps)
+        assert k1 == k4 == k5 == 0, (k1, k4, k5)
+        layout = eng.layout
+        log(f"{head}{steps} engine steps (one decode batch each, no prefill "
+            f"chunks); launches ssm_state_update={k7} (= {L} SSM layers x "
+            f"{steps} steps), fused_sample={k2}, paged_attention=0, "
+            f"grouped_matmul=0, moe_decode=0; exact-prefix hits "
+            f"{layout.exact_prefix_hits}, {len(layout._exact)} prompt "
+            f"snapshots + {len(layout._suspended)} preemption snapshots "
+            f"held = {layout.snapshot_bytes() / 1e9:.3f} GB (one slot row "
+            f"{slot_row_bytes(layout) / 1e6:.1f} MB); card: {card_line()}")
+        results["ssm_update"]["launches"] += k7
+        breakdown(eng, prompts, SSM_DECODE_KERNELS)
+        del eng
+        return
+    assert k7 == 0, k7
     assert batches > 0 and chunks > 0
     assert k1 == L * batches, (k1, batches)
-    assert k2 == batches, (k2, batches)
     moe = ""
     if cfg.moe is not None:
         assert k5 == L * (batches + chunks), (k5, batches, chunks)
@@ -771,17 +1096,10 @@ def serve(cfg, params, prompts, results: dict) -> None:
         results["moe_decode"]["launches"] += k5
     else:
         assert k4 == k5 == 0, (k4, k5)
-    n_tok = sum(len(r.generated) for r in reqs)
-    n_prompt = sum(len(p) for p in prompts)
-    gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
-    log(f"serve: {cfg.name} full width ({L} layers, d={cfg.d_model}, bf16, "
-        f"{gb:.2f} GB) {len(reqs)} requests, {n_prompt} prompt + {n_tok} "
-        f"generated tokens in {wall:.3f} s = {n_tok / wall:.1f} generated "
-        f"tok/s; {batches} decode batches, {chunks} prefill chunks; "
+    log(f"{head}{batches} decode batches, {chunks} prefill chunks; "
         f"launches paged_attention={k1} (= {L} x {batches}), "
-        f"fused_sample={k2}{moe}; card: {card_line()}")
+        f"fused_sample={k2}{moe}, ssm_state_update=0; card: {card_line()}")
     results["paged_attention"]["launches"] += k1
-    results["fused_sample"]["launches"] += k2
     breakdown(eng, prompts, MOE_KERNELS if cfg.moe is not None
               else DECODE_KERNELS)
     del eng
@@ -830,6 +1148,18 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
 
 
 DECODE_KERNELS = ("paged_attention_kernel", "fused_sample_kernel")
+SSM_DECODE_KERNELS = ("ssm_update_kernel", "fused_sample_kernel")
+SSD_KERNELS = ("ssd_fwd_kernel", "ssd_bwd_state_kernel",
+               "ssd_bwd_chunk_kernel")
+
+
+def slot_row_bytes(layout) -> int:
+    """Bytes of one slot's row of the state cache: what one snapshot
+    holds."""
+    from repro_torch.serve.layouts import _leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in _leaves(layout._zero_row))
 MOE_KERNELS = DECODE_KERNELS + ("gmm_kernel", "moe_dispatch_kernel",
                                 "moe_combine_kernel")
 
@@ -867,7 +1197,7 @@ def greedy_repeat(cfg, params, prompts) -> None:
     runs = []
     for _ in range(2):
         eng = serve_once(cfg, params, prompts, temperature=0.0, top_k=0,
-                         top_p=1.0)
+                         top_p=1.0, warm=False)
         reqs = [eng.submit(p, seed=SEED + i) for i, p in enumerate(prompts)]
         eng.run()
         runs.append([r.generated for r in reqs])
@@ -890,9 +1220,19 @@ def greedy_repeat(cfg, params, prompts) -> None:
 # can pick another expert on the two paths, and the recompute's capacity
 # dispatch may drop assignments that the engine's exact combine keeps;
 # on an H100 the reading is mean 0.776, max 4.43 (0.02 % dropped).
+# mamba2 and zamba2: the two paths round bf16 at other points (the JAX
+# package's): the engine's mamba2_decode sums the conv window in f32 and
+# rounds once after SiLU, where the recompute's mamba2_block rounds the
+# conv to bf16 and adds the bias and applies SiLU in bf16; and one token's
+# products are tiled unlike a sequence's.  Each SSM layer's recurrent
+# state carries such differences on to every later token.  In f32 the two
+# paths agree within 3e-6 on the reduced models (ref-train).  On an H100
+# the reading is mean 0.2349, max 1.587 for mamba2 (48 SSM layers) and
+# mean 0.02084, max 0.1092 for zamba2.
 # The limits leave about 3x room over the readings and still fail on a
-# wrong attention, expert product or logprob.
-MISMATCH_TOL = {"yi-9b": (0.02, 0.1), "granite-moe-3b-a800m": (2.5, 15.0)}
+# wrong attention, expert product, scan or logprob.
+MISMATCH_TOL = {"yi-9b": (0.02, 0.1), "granite-moe-3b-a800m": (2.5, 15.0),
+                "mamba2-370m": (0.7, 5.0), "zamba2-2.7b": (0.07, 0.35)}
 
 
 def moe_recompute_report(params, batch, prefill):
@@ -1001,15 +1341,27 @@ def moe_f32_paths(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def kernel_layers(cfg):
+    """(K3 launches, K6 launches) of one forward of ``cfg``: one K3 per
+    attention layer (a hybrid stack's shared block once per group), one K6
+    per SSM layer."""
+    if cfg.kind == "ssm":
+        return 0, cfg.num_layers
+    if cfg.kind == "hybrid":
+        return cfg.num_layers // cfg.attn_every, cfg.num_layers
+    return cfg.num_layers, 0
+
+
 def recompute(cfg, params, results: dict, passes: int = 5) -> None:
     """Step 2 of a GRPO iteration: the engine generates 16 rollouts
     (448-token prompts + 64 new tokens, S = 512) and ``make_prefill_step``
     scores them at full depth in bf16: one warm-up pass, then ``passes``
-    timed passes, each with one K3 launch per layer; the median is
-    reported."""
+    timed passes, each with one K3 launch per attention layer and one K6
+    launch per SSM layer; the median is reported."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.train import make_prefill_step
 
     B, P, N = ROLLOUTS
@@ -1022,16 +1374,18 @@ def recompute(cfg, params, results: dict, passes: int = 5) -> None:
     batch = {"tokens": tokens}
     prefill(params, batch)  # warm-up at the timed shape
     torch.cuda.synchronize()
-    walls, k3 = [], 0
+    walls, k3, k6 = [], 0, 0
+    want3, want6 = kernel_layers(cfg)
     for _ in range(passes):
         fa.flash_attention_bhsd.launches = 0
+        ssd.ssd_scan_bhcsp.launches = 0
         t0 = time.perf_counter()
         lp = prefill(params, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        n = fa.flash_attention_bhsd.launches
-        assert n == cfg.num_layers, (n, cfg.num_layers)
-        k3 += n
+        n3, n6 = fa.flash_attention_bhsd.launches, ssd.ssd_scan_bhcsp.launches
+        assert (n3, n6) == (want3, want6), (n3, n6, want3, want6)
+        k3, k6 = k3 + n3, k6 + n6
     wall = statistics.median(walls)
     assert lp.shape == (B, P + N)
     assert torch.isfinite(lp).all(), "recompute: non-finite logprobs"
@@ -1062,16 +1416,19 @@ def recompute(cfg, params, results: dict, passes: int = 5) -> None:
         f"scored in {wall * 1e3:.1f} ms (median of {passes} passes: "
         + ", ".join(f"{w * 1e3:.1f}" for w in walls)
         + f" ms) = {B * (P + N) / wall:.0f} tok/s; flash_attention_bhsd "
-        f"launches={k3} (= {cfg.num_layers} layers x {passes} passes); "
+        f"launches={k3} (= {want3} x {passes} passes), ssd_scan_bhcsp "
+        f"launches={k6} (= {want6} x {passes} passes); "
         f"engine vs recompute logprobs on the {B * N} generated tokens: "
         f"mean|diff|={mean_gap:.4g} (tol {mean_tol}) "
         f"max|diff|={max_gap:.4g} (tol {max_tol}){drops}; card: "
         f"{card_line()}")
     results["flash_fwd"]["launches"] += k3
+    if k6:
+        results["ssd_scan"]["launches"] += k6
     log_breakdown("recompute", f"{cfg.name} one scoring pass of {B} x "
                   f"{P + N} tokens",
                   wall, profiled(lambda: prefill(params, batch)),
-                  FLASH_KERNELS[:1])
+                  FLASH_KERNELS[:1] + SSD_KERNELS[:1])
 
 
 def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
@@ -1086,6 +1443,7 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import init_model
     from repro_torch.train import (AdamWConfig, TrainHParams, init_adamw,
                                    make_prefill_step, make_train_step)
@@ -1105,8 +1463,16 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
                                                    {"tokens": tokens})
     hp = TrainHParams(optimizer=AdamWConfig(lr=1e-5), n_microbatches=2)
     step = make_train_step(cfg, hp)
-    def probe():  # an attention weight, and an expert's where there are
-        ws = [params["layers"]["attn"]["wq"][0, :64, 0]]
+    def probe():  # an attention weight, an expert's, an SSM layer's A_log
+        if cfg.ssm is not None:
+            mixer = params["layers"]["mixer"]
+            ws = [mixer["A_log"].reshape(-1, mixer["A_log"].shape[-1])[-1],
+                  mixer["in_proj"].reshape(-1, *mixer["in_proj"].shape[-2:])
+                  [-1, :64, 0]]
+            if "shared_attn" in params:
+                ws.append(params["shared_attn"]["attn"]["wq"][:64, 0, 0])
+        else:
+            ws = [params["layers"]["attn"]["wq"][0, :64, 0]]
         if cfg.moe is not None:
             ws.append(params["layers"]["moe"]["gate"][0, -1, :64, 0])
         return [w.clone() for w in ws]
@@ -1114,27 +1480,31 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
     before = probe()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, fwd, bwd = [], 0, 0
+    times, fwd, bwd, sfwd, sbwd = [], 0, 0, 0, 0
+    n_attn, n_ssm = (n * hp.n_microbatches for n in kernel_layers(cfg))
     for i in range(steps):
         fa.flash_attention_bhsd.launches = 0
         fa.flash_attention_bwd.launches = 0
+        ssd.ssd_scan_bhcsp.launches = 0
+        ssd.ssd_scan_bwd.launches = 0
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         f, b = fa.flash_attention_bhsd.launches, fa.flash_attention_bwd.launches
-        assert f == layers * hp.n_microbatches, (f, layers)
-        assert b == layers * hp.n_microbatches, (b, layers)
-        fwd, bwd = fwd + f, bwd + b
+        sf, sb = ssd.ssd_scan_bhcsp.launches, ssd.ssd_scan_bwd.launches
+        assert f == b == n_attn, (f, b, n_attn)
+        assert sf == sb == n_ssm, (sf, sb, n_ssm)
+        fwd, bwd, sfwd, sbwd = fwd + f, bwd + b, sfwd + sf, sbwd + sb
         m = {k: float(v) for k, v in m.items()}
         assert all(math.isfinite(x) for x in m.values()), m
         if cfg.moe is not None:
             assert m["aux_loss"] > 0, m
         log(f"train: step {i}: {times[-1] * 1e3:.1f} ms = "
             f"{B * (P + R) / times[-1]:.0f} tok/s; flash launches fwd={f} "
-            f"bwd={b} (= {layers} layers x {hp.n_microbatches} "
-            f"microbatches); " + ", ".join(f"{k}={v:.5g}"
-                                           for k, v in sorted(m.items())))
+            f"bwd={b}, ssd_scan launches fwd={sf} bwd={sb} (= layers x "
+            f"{hp.n_microbatches} microbatches); "
+            + ", ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())))
     peak = torch.cuda.max_memory_allocated() / 1e9
     for a, b in zip(before, probe()):
         assert not torch.equal(a, b), "train: params did not change"
@@ -1147,9 +1517,13 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
         f"{peak:.2f} GB (max_memory_allocated); card: {card_line()}")
     results["flash_fwd"]["launches"] += fwd
     results["flash_bwd"]["launches"] += bwd
+    if sfwd:
+        results["ssd_scan"]["launches"] += sfwd
+        results["ssd_scan_bwd"]["launches"] += sbwd
     log_breakdown("train", f"{cfg.name} one step (a fourth, profiled)",
                   statistics.median(times),
-                  profiled(lambda: step(params, opt, batch)), FLASH_KERNELS)
+                  profiled(lambda: step(params, opt, batch)),
+                  FLASH_KERNELS + SSD_KERNELS)
 
 
 def main() -> int:
@@ -1193,17 +1567,26 @@ def main() -> int:
                               "granite-moe-3b-a800m")
     check_fused_sample(results)
     check_fused_sample(results, 51200, 49155, "granite-moe-3b-a800m")
+    check_fused_sample(results, 51200, 50280, "mamba2-370m")
+    check_fused_sample(results, 32768, 32000, "zamba2-2.7b")
     check_flash_attention(results)
+    check_flash_zamba2()
     check_grouped_matmul(results)
     check_moe_decode(results)
-    for arch in ("yi-9b", "granite-moe-3b-a800m"):
-        check_reference(arch, ((0.0, 0, 1.0),) if arch != "yi-9b"
+    check_ssd_scan(results)
+    check_ssm_update(results)
+    for arch in ("yi-9b", "granite-moe-3b-a800m", "mamba2-370m",
+                 "zamba2-2.7b"):
+        check_reference(arch, ((0.0, 0, 1.0),)
+                        if arch == "granite-moe-3b-a800m"
                         else ((0.0, 0, 1.0), (1.0, 8, 0.9)))
         check_ref_train(arch)
 
     # each model's main paths at full width: serve, greedy repeat and
-    # recompute from random bf16 weights, then the depth-cut f32 train step
-    for arch, train_layers in (("yi-9b", 8), ("granite-moe-3b-a800m", 16)):
+    # recompute from random bf16 weights, then the f32 train step (depth
+    # cut where the f32 params and AdamW moments would not fit)
+    for arch, train_layers in (("yi-9b", 8), ("granite-moe-3b-a800m", 16),
+                               ("mamba2-370m", 48), ("zamba2-2.7b", 24)):
         cfg = get_config(arch)
         t0 = time.perf_counter()
         params = init_model(torch.Generator(device="cuda").manual_seed(SEED),
@@ -1228,7 +1611,9 @@ def main() -> int:
 
     kernels = [results[k] for k in ("paged_attention", "fused_sample",
                                     "flash_fwd", "flash_bwd",
-                                    "grouped_matmul", "moe_decode")]
+                                    "grouped_matmul", "moe_decode",
+                                    "ssd_scan", "ssd_scan_bwd",
+                                    "ssm_update")]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

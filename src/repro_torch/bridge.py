@@ -30,8 +30,9 @@ def _to_tensor(a: Any, device: torch.device,
 
 
 # param names that JAX initializes in f32 whatever the model's type: the
-# MoE router (``models/moe.py`` ``init_moe``)
-F32_LEAVES = frozenset({"router"})
+# MoE router (``models/moe.py`` ``init_moe``) and the Mamba2 decay and
+# skip parameters (``models/ssm.py`` ``init_mamba2``)
+F32_LEAVES = frozenset({"router", "dt_bias", "A_log", "D"})
 
 
 def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,

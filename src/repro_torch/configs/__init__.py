@@ -1,8 +1,8 @@
-"""Architecture configs served by the port: the dense decoders and the
-MoE family.
+"""Architecture configs served by the port: the dense decoders, the MoE
+family and the SSM/hybrid family.
 
 Each module is a copy of its namesake in the JAX package's ``configs``;
-the SSM, hybrid, VLM and enc-dec configs arrive with their layouts.
+the VLM and enc-dec configs arrive with their layouts.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ _MODULES = [
     "codeqwen1_5_7b",
     "granite_moe_3b_a800m",
     "llama4_scout_17b_a16e",
+    "mamba2_370m",
+    "zamba2_2p7b",
 ]
 
 _loaded = False

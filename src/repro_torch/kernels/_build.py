@@ -50,6 +50,15 @@ SIGNATURES = {
     "moe_dispatch_launch": [_P] * 5 + [_I] * 6 + [_P],
     # out, slot, gate, y, T, k, d, bf16, stream
     "moe_combine_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # state, x, dt, A, Bm, Cm, D, y, out, strides[13], B, H, P, N, bf16,
+    # stream
+    "ssm_state_update_launch": [_P] * 9 + [_STRIDES] + [_I] * 5 + [_P],
+    # x, dt, A, Bm, Cm, D, y, states, strides[23], B, H, L, P, N, s, bf16,
+    # stream
+    "ssd_scan_fwd_launch": [_P] * 8 + [_STRIDES] + [_I] * 7 + [_P],
+    # x, dt, A, Bm, Cm, D, dy, states, dsend, dx, ddt, dbp, dcp, dap, ddp,
+    # strides[23], B, H, L, P, N, s, bf16, stream
+    "ssd_scan_bwd_launch": [_P] * 15 + [_STRIDES] + [_I] * 7 + [_P],
 }
 
 
@@ -68,7 +77,7 @@ def sources() -> List[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the .cuh headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprokernels_{h.hexdigest()[:16]}.so"

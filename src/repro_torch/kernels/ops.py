@@ -7,11 +7,14 @@ fallback: a failed launch raises.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import sampling as _samp
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssm_update as _ssu
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -67,3 +70,45 @@ def moe_decode(x, expert_idx, gate_vals, gate_w, up_w, down_w):
     (T, k), gate_w/up_w (E, d, f), down_w (E, f, d) -> (T, d)."""
     fn = _gmm.moe_decode_gmm if _on_card(x) else _gmm.moe_decode_gmm_plain
     return fn(x, expert_idx, gate_vals, gate_w, up_w, down_w)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, D, chunk: int):
+    """Mamba2 SSD chunked scan in the model layout (see
+    ``models.ssm.mamba2_block``): x (B, L, H, P), dt (B, L, H), A (H,),
+    Bm/Cm (B, L, N), D (H,) -> y (B, L, H, P) in x's type.  L that is no
+    multiple of ``chunk`` is padded with zeros and cut back.  On the card
+    the forward and backward are kernels (:class:`SSDScan`), launched on
+    transposed views (no copies); dt, A and D go in as f32, Bm and Cm in
+    x's type."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-L) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = (L + pad) // chunk
+    xk = x.reshape(B, nc, chunk, H, P).permute(0, 3, 1, 2, 4)
+    dtk = dt.reshape(B, nc, chunk, H).permute(0, 3, 1, 2)
+    Bk = Bm.reshape(B, nc, chunk, N)
+    Ck = Cm.reshape(B, nc, chunk, N)
+    Ab, Db = A.expand(B, H), D.expand(B, H)
+    if _on_card(x):
+        args = (xk, dtk.float(), Ab.float(), Bk.to(x.dtype), Ck.to(x.dtype),
+                Db.float())
+        save = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+        y = _ssd.SSDScan.apply(*args, save)
+    else:
+        y = _ssd.ssd_scan_plain(xk, dtk, Ab, Bk, Ck, Db)
+    return y.permute(0, 2, 3, 1, 4).reshape(B, L + pad, H, P)[:, :L]
+
+
+def ssm_state_update(state, x, dt, A, Bm, Cm, D):
+    """Single-token SSD state update (``models.ssm.mamba2_decode``
+    layout): state (B, H, P, N) f32, x (B, H, P), dt (B, H), A (H,),
+    Bm/Cm (B, N), D (H,) -> (y (B, H, P) f32, new_state (B, H, P, N) f32)."""
+    B, H = dt.shape
+    fn = (_ssu.ssm_state_update_bh if _on_card(state)
+          else _ssu.ssm_state_update_plain)
+    return fn(state, x, dt, A.expand(B, H), Bm, Cm, D.expand(B, H))

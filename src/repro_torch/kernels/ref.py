@@ -115,3 +115,50 @@ def moe_decode_ref(x, expert_idx, gate_vals, gate_w, up_w, down_w):
     combine = torch.zeros((T, E), dtype=torch.float32, device=x.device)
     combine.scatter_(1, expert_idx.long(), gate_vals.float())
     return torch.einsum("te,ted->td", combine, all_out).to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, D):
+    """Oracle matching ssd_scan_bhcsp layouts.
+
+    x (B, H, nc, s, P); dt (B, H, nc, s); A/D (B, H); Bm/Cm (B, nc, s, N).
+    Sequential state recurrence — obviously correct, O(L) steps.
+    """
+    B, H, nc, s, P = x.shape
+    N = Bm.shape[-1]
+    L = nc * s
+    xf = x.float().permute(0, 2, 3, 1, 4).reshape(B, L, H, P)
+    dtf = dt.float().permute(0, 2, 3, 1).reshape(B, L, H)
+    Bf = Bm.float().reshape(B, L, N)
+    Cf = Cm.float().reshape(B, L, N)
+    A, D = A.float(), D.float()
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(L):
+        decay = torch.exp(dtf[:, i] * A)  # (B, H)
+        upd = (dtf[:, i, :, None, None] * xf[:, i, :, :, None]
+               * Bf[:, i, None, None, :])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, i]))
+    y = torch.stack(ys, dim=1)  # (B, L, H, P)
+    y = y + xf * D[:, None, :, None]
+    y = y.reshape(B, nc, s, H, P).permute(0, 3, 1, 2, 4)
+    return y.to(x.dtype)
+
+
+def ssm_state_update_ref(state, x, dt, A, Bm, Cm, D):
+    """Oracle for the single-token SSD state update (ops layout:
+    per-head A/D vectors broadcast over batch inside the wrapper).
+
+    state (B, H, P, N); x (B, H, P); dt (B, H); A/D (H,); Bm/Cm (B, N)
+    -> (y (B, H, P) f32, new_state (B, H, P, N) f32)
+    """
+    state = state.float()
+    xf = x.float()
+    dtf = dt.float()
+    decay = torch.exp(dtf * A[None, :])  # (B, H)
+    upd = (dtf[:, :, None, None] * xf[:, :, :, None]) * Bm.float()[
+        :, None, None, :]
+    new_state = state * decay[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cm.float())
+    y = y + xf * D[None, :, None]
+    return y, new_state

@@ -1,5 +1,5 @@
-"""Attention, dense parts: GQA/MHA projections, scaled dot product and the
-full-sequence attention block.
+"""Attention, dense parts: GQA/MHA projections, scaled dot product, the
+full-sequence attention block and decode over a KV ring buffer.
 
 Counterpart of the JAX package's ``models/attention.py``.  Its
 ``chunked_sdpa`` (query-block chunking for S >= 2048) has no counterpart:
@@ -12,7 +12,7 @@ never materialises the (S, S) scores on the card.  Layouts:
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -136,3 +136,61 @@ def attention(
         k = apply_rope(k, positions, cfg.rope_theta)
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Decode with KV cache (ring buffer when windowed)
+# ---------------------------------------------------------------------------
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, W, KV, hd)
+    v: torch.Tensor  # (B, W, KV, hd)
+    positions: torch.Tensor  # (B, W) absolute position per slot, -1 = empty
+
+
+def init_kv_cache(B: int, W: int, KV: int, hd: int, dtype,
+                  device) -> KVCache:
+    return KVCache(
+        k=torch.zeros((B, W, KV, hd), dtype=dtype, device=device),
+        v=torch.zeros((B, W, KV, hd), dtype=dtype, device=device),
+        positions=torch.full((B, W), -1, dtype=torch.int32, device=device),
+    )
+
+
+def decode_attention(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: KVCache,
+    pos: torch.Tensor,  # (B,) int: each row's current absolute position
+    *,
+    window: int = 0,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One token per row against the row's KV ring.  Where the JAX
+    function takes one scalar position for the batch, this takes one per
+    row: row b writes its K/V at ring slot ``pos[b] % W`` and sees the
+    slots holding positions in ``(pos[b] - window, pos[b]]``.  Returns
+    new cache tensors; the input cache is not written."""
+    B = x.shape[0]
+    pos = pos.to(device=x.device, dtype=torch.long)
+    q, k, v = qkv_project(p, cfg, x)  # (B, 1, H|KV, hd)
+    posb = pos[:, None]
+    if use_rope:
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k = apply_rope(k, posb, cfg.rope_theta)
+    W = cache.k.shape[1]
+    # ring-buffer slot; when un-windowed W == max_seq so pos % W == pos
+    rows = torch.arange(B, device=x.device)
+    slot = pos % W
+    newk, newv = cache.k.clone(), cache.v.clone()
+    newpos = cache.positions.clone()
+    newk[rows, slot] = k[:, 0].to(newk.dtype)
+    newv[rows, slot] = v[:, 0].to(newv.dtype)
+    newpos[rows, slot] = pos.to(newpos.dtype)
+    valid = (newpos >= 0) & (newpos <= posb)
+    if window > 0:
+        valid &= newpos > posb - window
+    mask = additive_mask(valid)[:, None, None, :]  # (B, 1, 1, W)
+    out = sdpa(q, newk, newv, mask)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, KVCache(newk, newv, newpos)

@@ -4,8 +4,10 @@ from repro_torch.serve.engine import (  # noqa: F401
 )
 from repro_torch.serve.layouts import (  # noqa: F401
     CacheLayout,
+    LayoutError,
     MoEPagedKVLayout,
     PagedKVLayout,
+    StateCacheLayout,
     covers,
     layout_class,
 )

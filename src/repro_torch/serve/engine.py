@@ -1,11 +1,14 @@
 """Rollout/serving engine: paged continuous batching.
 
-:class:`PagedEngine` is continuous batching over a paged KV cache: the
+:class:`PagedEngine` is continuous batching over a device cache whose
+layout follows the architecture (:mod:`repro_torch.serve.layouts`): the
 decode batch is re-formed every step (finished requests immediately free
-their pages, queued prompts backfill), attention reads the cache through
-per-request block tables (the Hopper paged-attention kernel on the card),
-and trainer weight updates apply *in flight* at step boundaries with
-per-request version tags preserved for the staleness correction.
+their pages or slots, queued prompts backfill), attention reads a paged
+KV cache through per-request block tables (the Hopper paged-attention
+kernel on the card) and an SSM or hybrid stack keeps a constant-size
+state per slot, and trainer weight updates apply *in flight* at step
+boundaries with per-request version tags preserved for the staleness
+correction.
 
 It returns per-token *behaviour logprobs* so the trainer can form
 importance ratios without a separate inference pass.
@@ -100,15 +103,23 @@ class PagedEngine:
         # token-by-token prefill through the decode step)
         self.prefill_chunk = (int(prefill_chunk)
                               if layout_cls.supports_chunked_prefill else 0)
-        self.max_blocks = -(-self.max_seq_len // page_size)
-        # default pool: every slot holds a full sequence (+ trash page)
-        if num_pages is None:
-            num_pages = max_batch * self.max_blocks + 1
-        # the pool must at least hold ONE full sequence, or the oldest
-        # request could never finish even with everyone else preempted
-        if num_pages - 1 < self.max_blocks:
-            raise ValueError(f"num_pages={num_pages} cannot hold one "
-                             f"sequence of {self.max_blocks} pages")
+        if layout_cls.uses_pages:
+            self.max_blocks = -(-self.max_seq_len // page_size)
+            # default pool: every slot holds a full sequence (+ trash page)
+            if num_pages is None:
+                num_pages = max_batch * self.max_blocks + 1
+            # the pool must at least hold ONE full sequence, or the oldest
+            # request could never finish even with everyone else preempted
+            if num_pages - 1 < self.max_blocks:
+                raise ValueError(f"num_pages={num_pages} cannot hold one "
+                                 f"sequence of {self.max_blocks} pages")
+        else:
+            # constant-size layouts keep the allocator as an inert stub
+            # (page_size still parameterizes host bookkeeping); requests
+            # cost zero pages, so the pool size is irrelevant
+            self.max_blocks = 1
+            if num_pages is None:
+                num_pages = 2
         self.allocator = PageAllocator(num_pages=num_pages,
                                        page_size=page_size)
         self.prefix_cache: Optional[PrefixCache] = (
@@ -117,8 +128,9 @@ class PagedEngine:
         self.layout = layout_cls(
             cfg, max_batch=max_batch, page_size=page_size,
             num_pages=num_pages, max_blocks=self.max_blocks,
-            temperature=temperature, top_k=top_k, top_p=top_p, dtype=dtype,
-            device=self.device)
+            max_seq_len=self.max_seq_len, temperature=temperature,
+            top_k=top_k, top_p=top_p, dtype=dtype, device=self.device,
+            prefix_cache=self.prefix_cache, prefix_sharing=prefix_sharing)
         self.scheduler = ContinuousScheduler(
             max_batch=max_batch, allocator=self.allocator,
             max_seq_len=self.max_seq_len, prefix_cache=self.prefix_cache,
@@ -140,7 +152,9 @@ class PagedEngine:
 
     @property
     def cache(self):
-        """The layout's device cache (a :class:`PagedKVCache`)."""
+        """The layout's device cache (a :class:`PagedKVCache`, or a
+        :class:`~repro_torch.models.model.DecodeState` for the state
+        layout)."""
         return self.layout.cache
 
     # ------------------------------------------------------------------

@@ -7,8 +7,9 @@ logprob recompute.  ``make_serve_step`` comes with ``decode_step`` in the
 static-engine slice.  Of the JAX ``TrainHParams``, ``act_spec`` and
 ``grad_specs`` (sharding) have no counterpart on one card, and
 ``compute_dtype`` and ``value_coef`` are read by nothing in either
-package.  Only the dense kind runs here, so the VLM and encoder-decoder
-inputs of the batch are not taken.
+package.  The dense, MoE, SSM and hybrid kinds run here (``forward``
+carries what is kind-specific); the VLM and encoder-decoder kinds are not
+ported, so their inputs of the batch are not taken.
 """
 from __future__ import annotations
 

@@ -17,7 +17,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import sampling as ks
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels import ssm_update as ssu
 from repro_torch.models import forward, init_model
+from repro_torch.serve import PagedEngine
 from repro_torch.serve.sampling import request_noise
 from repro_torch.train import TrainHParams, policy_loss
 from repro_torch.utils.treeutil import tree_leaves, tree_map
@@ -213,6 +216,8 @@ FLASH_CASES = [
     (2, 32, 4, 1024, 128, True, 0),    # yi-9b train microbatch
     (16, 24, 8, 512, 64, True, 0),     # granite logprob recompute
     (2, 24, 8, 1024, 64, True, 0),     # granite train microbatch
+    (2, 32, 32, 300, 80, True, 64),    # zamba2 heads (MHA, D 80), window
+    (2, 32, 32, 1024, 80, True, 4096),  # zamba2 train microbatch
 ]
 
 
@@ -477,3 +482,267 @@ def test_moe_launch_counters(dev):
     assert gmm.grouped_matmul.launches == g0 + 2
     ops.grouped_matmul(ws[0], ws[2])
     assert gmm.grouped_matmul.launches == g0 + 3
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the SSD chunked scan (forward and backward) and the one-token
+# state update
+# ---------------------------------------------------------------------------
+# relative to the largest |value|.  K6 f32: the kernel and the plain
+# version take the same prefix sums (f64, rounded per position) and the
+# same exps, and sum the products in other orders; bf16: y rounded once
+# from those f32 sums.  Grads: f32 summation order; bf16 dx, dBm, dCm
+# rounded once.  K7: f32 arithmetic on both sides, one FMA apart.
+SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SSD_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SSU_RTOL = 1e-5
+
+
+def _ssd_inputs(seed, B, L, H, P, N, dtype, dev):
+    """Model-layout inputs: dt a softplus of a standard normal, A as
+    ``init_mamba2`` makes it (-1 .. -16 across the heads)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    x = t(rng.standard_normal((B, L, H, P)), dtype)
+    dt = t(np.log1p(np.exp(rng.standard_normal((B, L, H)))))
+    A = t(-np.linspace(1.0, 16.0, H))
+    Bm = t(0.5 * rng.standard_normal((B, L, N)), dtype)
+    Cm = t(0.5 * rng.standard_normal((B, L, N)), dtype)
+    D = t(1.0 + 0.1 * rng.standard_normal(H))
+    return x, dt, A, Bm, Cm, D
+
+
+def _ssd_plain_model_layout(x, dt, A, Bm, Cm, D, chunk):
+    """ops.ssd_scan's layout change and padding around the plain
+    version."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-L) % chunk
+    x, dt, Bm, Cm = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                             + (0, pad))
+                     for t in (x, dt, Bm, Cm))
+    nc = (L + pad) // chunk
+    y = ssd.ssd_scan_plain(
+        x.reshape(B, nc, chunk, H, P).permute(0, 3, 1, 2, 4),
+        dt.reshape(B, nc, chunk, H).permute(0, 3, 1, 2), A.expand(B, H),
+        Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
+        D.expand(B, H))
+    return y.permute(0, 2, 3, 1, 4).reshape(B, L + pad, H, P)[:, :L]
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+SSD_CASES = [  # B, L, H, P, N, chunk
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 4, 32, 16, 32),
+    (1, 256, 1, 64, 64, 64),
+    (2, 100, 3, 64, 128, 100),    # L < chunk_size: one chunk of 100
+    (2, 300, 4, 64, 128, 128),    # padded to 384
+    (2, 1024, 32, 64, 128, 128),  # mamba2-370m train microbatch
+    (2, 1024, 80, 64, 64, 128),   # zamba2-2.7b train microbatch
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(dev, B, L, H, P, N, chunk, dtype):
+    args = _ssd_inputs(L + N, B, L, H, P, N, dtype, dev)
+    got = ops.ssd_scan(*args, chunk)
+    want = _ssd_plain_model_layout(*args, chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, L, H, P)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= SSD_RTOL[dtype]
+    if L <= 300:  # the sequential oracle, step by step
+        nc = -(-L // chunk)
+        if L % chunk == 0:
+            x, dt, A, Bm, Cm, D = args
+            oracle = ref.ssd_scan_ref(
+                x.reshape(B, nc, chunk, H, P).permute(0, 3, 1, 2, 4),
+                dt.reshape(B, nc, chunk, H).permute(0, 3, 1, 2),
+                A.expand(B, H), Bm.reshape(B, nc, chunk, N),
+                Cm.reshape(B, nc, chunk, N), D.expand(B, H))
+            oracle = oracle.permute(0, 2, 3, 1, 4).reshape(B, L, H, P)
+            # the oracle multiplies decays step by step: f32 rounding
+            # compounds over the chunk
+            assert _rel(got, oracle) <= (1e-3 if dtype == torch.float32
+                                         else 3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", SSD_CASES)
+def test_ssd_scan_bwd_kernel_matches_plain_autograd(dev, B, L, H, P, N,
+                                                    chunk, dtype):
+    """Every gradient (x, dt, A, Bm, Cm, D) through ops.ssd_scan on the
+    card (the backward kernels) against autograd of the plain version."""
+    args = _ssd_inputs(L * 3 + N, B, L, H, P, N, dtype, dev)
+    dy = torch.from_numpy(np.random.default_rng(L).standard_normal(
+        (B, L, H, P)).astype(np.float32)).to(dev, dtype)
+    grads = []
+    for fn in (ops.ssd_scan, _ssd_plain_model_layout):
+        leaves = [t.clone().requires_grad_() for t in args]
+        y = fn(*leaves, chunk)
+        grads.append(torch.autograd.grad(y, leaves, dy))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("x", "dt", "A", "Bm", "Cm", "D"), *grads):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, w) <= SSD_GRAD_RTOL[dtype], (name, _rel(g, w))
+
+
+def test_ssd_scan_bwd_kernel_is_repeatable_bitwise(dev):
+    args = _ssd_inputs(5, 2, 512, 8, 64, 128, torch.float32, dev)
+    dy = torch.ones((2, 512, 8, 64), device=dev)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in args]
+        runs.append(torch.autograd.grad(ops.ssd_scan(*leaves, 128), leaves,
+                                        dy))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_kernel_in_the_tpu_layout(dev):
+    """ssd_scan_bhcsp on contiguous (B, H, nc, s, P) tensors, as the TPU
+    kernel takes them, against the plain version and the oracle."""
+    B, H, nc, s, P, N = 2, 4, 3, 32, 32, 16
+    rng = np.random.default_rng(11)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev)
+
+    x, Bm, Cm = t((B, H, nc, s, P)), t((B, nc, s, N), 0.5), t((B, nc, s, N),
+                                                             0.5)
+    dt = torch.nn.functional.softplus(t((B, H, nc, s)))
+    A, D = -torch.exp(0.3 * t((B, H))), t((B, H))
+    got = ssd.ssd_scan_bhcsp(x, dt, A, Bm, Cm, D)
+    assert _rel(got, ssd.ssd_scan_plain(x, dt, A, Bm, Cm, D)) <= 1e-4
+    assert _rel(got, ref.ssd_scan_ref(x, dt, A, Bm, Cm, D)) <= 1e-3
+
+
+SSU_CASES = [  # B, H, P, N
+    (1, 2, 16, 8),
+    (3, 4, 32, 16),
+    (2, 24, 64, 128),
+    (8, 32, 64, 128),  # mamba2-370m decode
+    (8, 80, 64, 64),   # zamba2-2.7b decode
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,P,N", SSU_CASES)
+def test_ssm_state_update_kernel_matches_plain(dev, B, H, P, N, dtype):
+    """K7 on a state that is a strided view of a larger cache (as the
+    state layout's per-layer slice is), against the plain version and the
+    oracle."""
+    rng = np.random.default_rng(B * H + N)
+
+    def t(shape, scale=1.0, dt=torch.float32):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev, dt)
+
+    cache = t((B, 2, H, P, N))
+    state = cache[:, 1]
+    x, Bm, Cm = t((B, H, P), dt=dtype), t((B, N), 0.5, dtype), t((B, N), 0.5,
+                                                                 dtype)
+    dt = torch.nn.functional.softplus(t((B, H)))
+    A, D = -torch.exp(0.3 * t((H,))), torch.ones(H, device=dev)
+    y, new = ops.ssm_state_update(state, x, dt, A, Bm, Cm, D)
+    want_y, want_s = ssu.ssm_state_update_plain(
+        state, x, dt, A.expand(B, H), Bm, Cm, D.expand(B, H))
+    oracle_y, oracle_s = ref.ssm_state_update_ref(state, x, dt, A, Bm, Cm, D)
+    torch.cuda.synchronize()
+    assert y.dtype == new.dtype == torch.float32
+    for got, want in ((y, want_y), (new, want_s), (y, oracle_y),
+                      (new, oracle_s)):
+        assert _rel(got, want) <= SSU_RTOL
+    assert torch.equal(state, cache[:, 1])  # the input is not written
+
+
+def test_ssm_launch_counters(dev):
+    args = _ssd_inputs(0, 1, 64, 2, 16, 8, torch.float32, dev)
+    f0, b0 = ssd.ssd_scan_bhcsp.launches, ssd.ssd_scan_bwd.launches
+    leaves = [t.clone().requires_grad_() for t in args]
+    y = ops.ssd_scan(*leaves, 32)
+    y.sum().backward()
+    with torch.no_grad():
+        ops.ssd_scan(*args, 32)
+    _ssd_plain_model_layout(*args, 32)
+    assert ssd.ssd_scan_bhcsp.launches == f0 + 2
+    assert ssd.ssd_scan_bwd.launches == b0 + 1
+    u0 = ssu.ssm_state_update_bh.launches
+    state = torch.zeros((1, 2, 16, 8), device=dev)
+    x, dt = torch.ones((1, 2, 16), device=dev), torch.ones((1, 2),
+                                                          device=dev)
+    A, D, Bm = -torch.ones(2, device=dev), torch.ones(2, device=dev), \
+        torch.ones((1, 8), device=dev)
+    ssu.ssm_state_update_plain(state, x, dt, A, Bm, Bm, D)
+    ops.ssm_state_update(state, x, dt, A, Bm, Bm, D)
+    assert ssu.ssm_state_update_bh.launches == u0 + 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_forward_and_policy_grads_card_vs_cpu(dev, arch):
+    """Reduced mamba2 and zamba2 in f32 from the same weights: logits and
+    every gradient of the policy loss (A_log, dt_bias and D among them) on
+    the card (K6 forward and backward, K3 in the hybrid) against the CPU
+    (the plain versions).  f32 on both sides: cuBLAS and the CPU sum in
+    other orders."""
+    cfg = get_config(arch).reduced()
+    cpu = init_model(torch.Generator().manual_seed(9), cfg, torch.float32,
+                     "cpu")
+    rng = np.random.default_rng(9)
+    B, S = 2, 75
+    mask = np.zeros((B, S), np.float32)
+    mask[:, 25:] = 1.0
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                                     (B, S))),
+             "old_logprobs": torch.full((B, S), -6.0),
+             "advantages": torch.from_numpy(
+                 rng.standard_normal((B, S)).astype(np.float32) * mask),
+             "loss_mask": torch.from_numpy(mask)}
+    hp = TrainHParams(entropy_coef=0.01)
+    out = []
+    for device in ("cpu", dev):
+        params = tree_map(lambda t: t.to(device).requires_grad_(), cpu)
+        mb = {k: v.to(device) for k, v in batch.items()}
+        logits, _ = forward(params, cfg, mb["tokens"])
+        loss, _ = policy_loss(cfg, hp, params, mb)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out.append((logits.detach().cpu(), float(loss.detach()),
+                    [g.cpu() for g in grads]))
+    (lc, loss_c, gc), (lg, loss_g, gg) = out
+    torch.testing.assert_close(lg, lc, atol=1e-4, rtol=1e-4)
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) + 1e-6
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-7
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_engine_card_vs_cpu(dev, arch):
+    """Reduced mamba2 and zamba2 served through the state cache layout on
+    the card (K7, K2) and on the CPU from the same f32 weights: the same
+    tokens, at temperature 0 and above it, and the same logprobs within
+    1e-3 (cuBLAS and the CPU sum in other orders)."""
+    cfg = get_config(arch).reduced()
+    cpu = init_model(torch.Generator().manual_seed(10), cfg, torch.float32,
+                     "cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    prompts = np.random.default_rng(10).integers(3, cfg.vocab_size, (5, 13))
+    for temp, k, p in ((0.0, 0, 1.0), (1.0, 8, 0.9)):
+        res = []
+        for device, params in (("cpu", cpu), (dev, gpu)):
+            eng = PagedEngine(cfg, max_batch=3, max_new_tokens=10,
+                              max_seq_len=64, temperature=temp, top_k=k,
+                              top_p=p, device=device)
+            assert eng.layout.name == "state"
+            res.append(eng.generate(params, prompts, seed=3))
+        assert torch.equal(res[0].tokens, res[1].tokens)
+        assert (res[0].logprobs - res[1].logprobs).abs().max() <= 1e-3

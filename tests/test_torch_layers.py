@@ -41,7 +41,8 @@ def rng():
 
 
 def test_config_registry_matches_jax():
-    ported = sorted(DENSE + ["granite-moe-3b-a800m", "llama4-scout-17b-a16e"])
+    ported = sorted(DENSE + ["granite-moe-3b-a800m", "llama4-scout-17b-a16e",
+                             "mamba2-370m", "zamba2-2.7b"])
     assert tconfigs.list_archs() == ported
     for name in ported:  # asdict: the MoE block is a dataclass of its own
         assert dataclasses.asdict(tconfigs.get_config(name)) == \

@@ -171,12 +171,14 @@ def test_causal_mask_matches_jax(Sq, Sk, window):
 
 
 def test_forward_ports_the_dense_kind_only():
-    """``forward`` ports the dense and MoE kinds; the kinds still to come
-    (SSM, hybrid, VLM, encoder-decoder) raise."""
+    """``forward`` ports the dense, MoE, SSM and hybrid kinds; the kinds
+    still to come (VLM, encoder-decoder) raise."""
     _, tcfg = tiny_cfg()
     params = _bridge(_jinit(jax.random.PRNGKey(0), tiny_cfg()[0]))
-    with pytest.raises(NotImplementedError):
-        forward(params, tcfg.replace(kind="ssm"), torch.zeros((1, 4)).long())
+    for kind in ("vlm", "encdec"):
+        with pytest.raises(NotImplementedError):
+            forward(params, tcfg.replace(kind=kind),
+                    torch.zeros((1, 4)).long())
 
 
 # ---------------------------------------------------------------------------
