@@ -6,7 +6,11 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, one line of output each (more for the kernels):
-  1. header     the card's name and power limit, and the kernel build time;
+  1. header     the card's name and power limit, the kernel build time,
+                every kernel's registers and spills, and that the bf16
+                kernels of K3's forward and K4 run their products on the
+                tensor cores (HGMMA, HMMA in every instance's SASS) and
+                spill nothing;
   2. kernels    each hand-written kernel against its plain PyTorch version
                 at the four models' shapes, with CUDA-event timings: paged
                 attention and sampling (decode; sampling also at mamba2's
@@ -44,6 +48,7 @@ random weights:
                 microbatches, step time, peak memory and kernel launches
                 per step.
 
+After the phases one line a kernel gives its time against its bound.
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before it a JSON object with every kernel's numbers, and
 the last ``{"ok": true, "device": {...}}``.  Any failed phase raises and
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -103,13 +109,19 @@ def time_ms(fn, reps: int = 5, n: int = 20) -> float:
 
 def device_ms(fn, n: int = 20) -> float:
     """Device time of one call of ``fn``: the sum over its CUDA kernels
-    under ``torch.profiler``, the mean of ``n`` calls after a warm-up."""
+    under ``torch.profiler``, the mean of ``n`` calls after a warm-up.  A
+    profile now and then comes back without device events; it is taken
+    again, three times at most."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    return sum(t for _, t, _ in profiled(fn, n)) * 1e3
+    for _ in range(3):
+        ms = sum(t for _, t, _ in profiled(fn, n)) * 1e3
+        if ms > 0:
+            return ms
+    raise RuntimeError("the profiler saw no device time in three profiles")
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
@@ -117,6 +129,62 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
     t_ops = ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# the bf16 kernels whose products run on the tensor cores, and the SASS
+# instruction of their products: K3's forward (wgmma) and K4, also inside K5
+# (mma.sync)
+TC_KERNELS = {"flash_fwd_wgmma_kernel": "HGMMA", "gmm_mma_kernel": "HMMA"}
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_wgmma_kernel<128>`` from an Itanium-mangled kernel
+    name."""
+    for m in re.finditer(r"(?=(\d+))", mangled):  # every digit run's tails
+        end = m.start() + len(m.group(1))
+        ident = mangled[end:end + int(m.group(1))]
+        if ident.endswith("_kernel") and ident.isidentifier():
+            rest = mangled[end + len(ident):]
+            args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) \
+                if rest.startswith("I") else []
+            return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def check_build(so: Path) -> None:
+    """Every kernel's registers and spills from the build's ``-Xptxas -v``
+    log; the tensor-core kernels must spill nothing, and the SASS of every
+    instance (``cuobjdump -sass`` of the built library) must hold their
+    tensor-core product: HGMMA (wgmma) or HMMA (mma.sync)."""
+    from repro_torch.kernels import _build
+
+    name, spills = "", {}
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "Function properties for" in line:
+            name = line.split("for ")[-1].strip()
+        elif "spill stores" in line:
+            spills[name] = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            log(f"header: ptxas {kernel_name(name)}: {regs} registers, "
+                f"{spills.get(name, '')}")
+    for key in TC_KERNELS:
+        found = [n for n in spills if key in n]
+        assert found, f"{key}: not in the build log"
+        for n in found:
+            assert "0 bytes spill stores, 0 bytes spill loads" in spills[n], (
+                f"{kernel_name(n)} spills: {spills[n]}")
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for key, op in TC_KERNELS.items():
+        counts = {kernel_name(f.split("\n", 1)[0].strip()): f.count(op)
+                  for f in sass.split("Function : ")[1:] if key in f[:300]}
+        assert counts and all(counts.values()), f"{key}: no {op} in {counts}"
+        log(f"header: SASS of {key}: {op} in every instance ("
+            + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
+            + "); no spills")
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +373,13 @@ def flash_case(g, dtype, B: int, S: int, window: int, backward: bool,
     return case
 
 
+def flash_flops(B: int, S: int, heads) -> float:
+    """Operations of causal K3 forward: 4 * D flops per live (query, key)
+    pair (QK^T and PV)."""
+    H, _, D = heads
+    return 4.0 * B * H * D * (S * (S + 1) // 2)
+
+
 def flash_bounds(dtype, B: int, S: int, heads=YI_HEADS):
     """(forward, backward) bounds of causal K3 at ``heads``: each a
     (ms, 'bytes' or 'operations') pair."""
@@ -369,9 +444,11 @@ def check_flash_attention(results: dict) -> None:
             lib_ms = time_ms(sdpa)
         (fwd_bound, fwd_by), (bwd_bound, bwd_by) = flash_bounds(dtype, B, S,
                                                                 heads)
-        line = (f"{c['line']}; fwd kernel={ms:.4f} ms plain={plain_ms:.4f} "
-                f"ms sdpa={lib_ms:.4f} ms bound={fwd_bound:.4f} ms "
-                f"({fwd_by})")
+        tf = flash_flops(B, S, heads) / 1e9
+        line = (f"{c['line']}; fwd kernel={ms:.4f} ms ({tf / ms:.1f} "
+                f"TFLOP/s) plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms "
+                f"({tf / lib_ms:.1f} TFLOP/s) bound={fwd_bound:.4f} ms "
+                f"({fwd_by}; kernel at {100 * fwd_bound / ms:.1f} % of it)")
         if not backward:  # the recompute's shape and type
             log(line)
             if record:
@@ -423,7 +500,8 @@ def check_grouped_matmul(results: dict) -> None:
     shapes: the decode step's (40 experts x 8 rows, 1536 -> 512 and
     512 -> 1536), a prefill chunk's (256 rows, with per-expert row counts
     and without) and a ragged one; then timed in bf16 at the decode
-    gate/up shape beside its bound, its plain version and ``torch.bmm``."""
+    gate/up shape beside its bound, its plain version and ``torch.bmm``,
+    in f32 at the same shape, and in bf16 at a prefill chunk's."""
     import torch
 
     from repro_torch.kernels import moe_gmm as gmm
@@ -467,16 +545,31 @@ def check_grouped_matmul(results: dict) -> None:
     got = gmm.grouped_matmul(buf, ws[0])
     want = gmm.grouped_matmul_plain(buf, ws[0])
     err = (got.float() - want.float()).abs().max().item()
+    # device time under the profiler: a launch costs the host more than
+    # the card takes, so back-to-back calls between events time the host
     it = iter(range(1 << 30))
-    ms = time_ms(lambda: gmm.grouped_matmul(buf, ws[next(it) % 2]))
+    event_ms = time_ms(lambda: gmm.grouped_matmul(buf, ws[next(it) % 2]))
+    ms = device_ms(lambda: gmm.grouped_matmul(buf, ws[next(it) % 2]))
     plain_ms = time_ms(lambda: gmm.grouped_matmul_plain(buf, ws[next(it) % 2]),
                        n=5)
-    lib_ms = time_ms(lambda: torch.bmm(buf, ws[next(it) % 2]))
+    lib_ms = device_ms(lambda: torch.bmm(buf, ws[next(it) % 2]))
     bms, by = bound_ms(2 * (E * C * D + E * D * F + E * C * F),
                        2 * E * C * D * F, "bfloat16")
     log(f"kernels: grouped_matmul bf16 E={E} C={C} D={D} F={F} (decode "
-        f"gate/up) max|err|={err:.3g} kernel={ms:.4f} ms plain="
-        f"{plain_ms:.4f} ms bmm={lib_ms:.4f} ms bound={bms:.4f} ms ({by})")
+        f"gate/up) max|err|={err:.3g} kernel={ms:.4f} ms device "
+        f"({event_ms:.4f} ms a call between events) plain={plain_ms:.4f} ms "
+        f"bmm={lib_ms:.4f} ms device bound={bms:.4f} ms ({by}; kernel at "
+        f"{100 * bms / ms:.1f} % of it)")
+    # f32 keeps the CUDA-core kernel (its 1e-5 gate leaves no room for
+    # TF32): the same shape in f32, device time
+    buf32, ws32 = buf.float(), [w.float() for w in ws]
+    f32_ms = device_ms(lambda: gmm.grouped_matmul(buf32, ws32[next(it) % 2]))
+    b32, by32 = bound_ms(4 * (E * C * D + E * D * F + E * C * F),
+                         2 * E * C * D * F, "float32")
+    log(f"kernels: grouped_matmul f32 E={E} C={C} D={D} F={F} (decode "
+        f"gate/up, CUDA cores) kernel={f32_ms:.4f} ms device bound="
+        f"{b32:.4f} ms ({by32})")
+    del buf32, ws32
     results["grouped_matmul"] = dict(
         name="grouped_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -487,14 +580,15 @@ def check_grouped_matmul(results: dict) -> None:
     C = 256
     buf = torch.randn((E, C, D), generator=g, device=dev).to(bf)
     rows = torch.full((E,), C * 8 // E, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: gmm.grouped_matmul(buf, ws[0], rows))
-    lib_ms = time_ms(lambda: torch.bmm(buf[:, :C * 8 // E], ws[0]))
+    ms = device_ms(lambda: gmm.grouped_matmul(buf, ws[0], rows))
+    lib_ms = device_ms(lambda: torch.bmm(buf[:, :C * 8 // E], ws[0]))
     n = E * (C * 8 // E)  # live rows
     bms, by = bound_ms(2 * (n * D + E * D * F + n * F), 2 * n * D * F,
                        "bfloat16")
     log(f"kernels: grouped_matmul bf16 E={E} C={C} D={D} F={F} rows "
         f"{C * 8 // E} each (prefill chunk gate/up): kernel={ms:.4f} ms "
-        f"bmm on the live rows={lib_ms:.4f} ms bound={bms:.4f} ms ({by})")
+        f"device, bmm on the live rows={lib_ms:.4f} ms device, bound="
+        f"{bms:.4f} ms ({by})")
 
 
 def moe_case(g, dtype, T: int, router, weights, same: bool = False):
@@ -564,7 +658,8 @@ def check_moe_decode(results: dict) -> None:
         got = gmm.moe_decode_gmm(*args)
         err = (got.float() - gmm.moe_decode_gmm_plain(*args).float()
                ).abs().max().item()
-        ms = time_ms(lambda: gmm.moe_decode_gmm(*args))
+        event_ms = time_ms(lambda: gmm.moe_decode_gmm(*args))
+        ms = device_ms(lambda: gmm.moe_decode_gmm(*args))
         plain_ms = time_ms(lambda: gmm.moe_decode_gmm_plain(*args), n=5)
         # this routing's data: the touched experts' weights, x, y, idx,
         # gate; 2 flops per weight element per routed row, 3 products
@@ -572,9 +667,11 @@ def check_moe_decode(results: dict) -> None:
         nbytes = touched * 3 * d * f * 2 + 2 * T * d * 2 + T * k * 12
         bms, by = bound_ms(nbytes, 6 * T * k * d * f, "bfloat16")
         log(f"kernels: moe_decode bf16 T={T} k={k} E={E} d={d} f={f} "
-            f"({touched} experts touched) kernel={ms:.4f} ms plain="
-            f"{plain_ms:.4f} ms bound={bms:.4f} ms ({by}); library: none "
-            f"(no single PyTorch call)")
+            f"({touched} experts touched) kernel={ms:.4f} ms device (its "
+            f"four launches; {event_ms:.4f} ms a call between events) "
+            f"plain={plain_ms:.4f} ms "
+            f"bound={bms:.4f} ms ({by}); library: none (no single PyTorch "
+            f"call)")
         if T == 8:  # the decode step: the JSON entry
             results["moe_decode"] = dict(
                 name="moe_decode_gmm", route="cuda",
@@ -830,9 +927,12 @@ def check_ssm_update(results: dict) -> None:
 
 def check_flash_zamba2() -> None:
     """K3 at zamba2's shared attention heads (MHA, D 80) with its window
-    4096: the recompute's forward (16 x 512, bf16) and the train
-    microbatch's forward and backward (2 x 1024, f32), timed."""
+    4096: the recompute's forward (16 x 512, bf16; beside
+    ``scaled_dot_product_attention``, causal, which the window does not cut
+    at 512 tokens) and the train microbatch's forward and backward (2 x
+    1024, f32), timed."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
@@ -843,11 +943,22 @@ def check_flash_zamba2() -> None:
         q, k, v = c["q"], c["k"], c["v"]
         kw = dict(causal=True, window=4096)
         ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, **kw))
-        line = f"{c['line']}; fwd kernel={ms:.4f} ms"
+        tf = flash_flops(B, S, ZAMBA2_HEADS) / 1e9
+        line = f"{c['line']}; fwd kernel={ms:.4f} ms ({tf / ms:.1f} TFLOP/s)"
         if backward:
             bms = time_ms(lambda: fa.flash_attention_bwd(
                 q, k, v, c["out"], c["lse"], c["dout"], **kw))
             line += f"; bwd kernel={bms:.4f} ms"
+        else:
+            lib = [t.contiguous() for t in (q, k, v)]
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    *lib, is_causal=True))
+            bound, by = flash_bounds(dtype, B, S, ZAMBA2_HEADS)[0]
+            line += (f" sdpa={lib_ms:.4f} ms ({tf / lib_ms:.1f} TFLOP/s) "
+                     f"bound={bound:.4f} ms ({by}; kernel at "
+                     f"{100 * bound / ms:.1f} % of it)")
+            del lib
         log(line + " (zamba2-2.7b shared attention)")
         del c
         torch.cuda.empty_cache()
@@ -1143,7 +1254,10 @@ def log_breakdown(tag: str, what: str, wall: float, rows, kernels) -> None:
             f"x{count:<4.0f} {key[:90]}")
 
 
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+# K3's bf16 forward (the recompute's) first, then its f32 forward and
+# backward (the train step's)
+FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                 "flash_bwd_dkdv_kernel",
                  "flash_bwd_dq_kernel", "flash_bwd_delta_kernel")
 
 
@@ -1160,7 +1274,7 @@ def slot_row_bytes(layout) -> int:
 
     return sum(t.numel() * t.element_size()
                for t in _leaves(layout._zero_row))
-MOE_KERNELS = DECODE_KERNELS + ("gmm_kernel", "moe_dispatch_kernel",
+MOE_KERNELS = DECODE_KERNELS + ("gmm_mma_kernel", "moe_dispatch_kernel",
                                 "moe_combine_kernel")
 
 
@@ -1556,9 +1670,7 @@ def main() -> int:
     log(f"header: {card}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; kernels "
         f"built in {build_s:.1f} s -> {so.name}")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"header: ptxas {line.strip()}")
+    check_build(so)
 
     results: dict = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1616,6 +1728,13 @@ def main() -> int:
                                     "ssm_update")]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in kernels:
+        lib = (f", library {r['library_ms']:.4f} ms" if r["library_ms"]
+               else "")
+        log(f"summary: {r['name']}: {r['ms']:.4f} ms, {r['launches']} "
+            f"launches on the main paths, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}): {100 * r['bound_ms'] / r['ms']:.1f} % of "
+            f"its bound{lib}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -105,7 +105,7 @@ def build() -> Path:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
         tmp_so = Path(tmp) / out.name
         link = subprocess.run(
-            [nvcc, "-shared", *map(str, objs), "-o", str(tmp_so)],
+            [nvcc, "-shared", *map(str, objs), "-o", str(tmp_so), "-lcuda"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")

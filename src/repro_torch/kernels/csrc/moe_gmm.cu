@@ -3,13 +3,14 @@
 //
 // Replaces two Pallas TPU kernels of src/repro/kernels/moe_gmm.py:
 //   - `grouped_matmul` / `_gmm_kernel` (K4): out[e] = buf[e] @ w[e] over
-//     (E, C, D) x (E, D, F) with an f32 accumulator.  Here `gmm_kernel`.
+//     (E, C, D) x (E, D, F) with an f32 accumulator.  Here one kernel a
+//     type: `gmm_mma_kernel` for bf16 (tensor cores), `gmm_kernel` for f32
+//     (CUDA cores, so the 1e-5 f32 gate holds without TF32).
 //   - `moe_decode_gmm` (K5): token -> expert dispatch into a drop-free
 //     (E, C, d) buffer, gate and up products with SiLU gating, the down
 //     product, and the gate-weighted combine back to (T, d).  Here four
-//     launches: `moe_dispatch_kernel`, `gmm_kernel<gated>` (gate and up in
-//     one pass, two accumulators), `gmm_kernel` (down), and
-//     `moe_combine_kernel`.
+//     launches: `moe_dispatch_kernel`, K4 gated (gate and up in one pass,
+//     two accumulators), K4 (down), and `moe_combine_kernel`.
 //
 // What bounds it on this card.  At decode (T = 8 tokens, top-8 of 40
 // experts, d 1536, expert d_ff 512) the work is the expert weights' bytes:
@@ -22,31 +23,44 @@
 // without the counts the 5x larger capacity buffer (40 experts x 256
 // rows) would all be multiplied.
 //
-// What the design does about it.
-//   - Each block owns a (BM x 64) output tile of one expert and loops over
-//     the depth in 32-deep shared-memory stages, the sums in registers.  A
-//     tile whose first row is at or past the expert's row count returns at
-//     once, so an expert no token picked is never read, and rows past the
-//     count are neither read nor written.  The grid runs the row tiles of
-//     one (expert, column tile) next to each other, so their weight tile
-//     is read from HBM once and from L2 after.
-//   - Tile height: 8 rows (one per row group of threads) when C <= 16, as
-//     at decode where C = T = 8 and a 64-row tile would waste 7/8 of its
-//     work; 32 rows (4 per thread) above, as in a prefill chunk.
-//   - Batch invariance: every output element is one thread's sequence of
-//     fmaf over k = 0 .. D-1 (zero-filled past D), whatever the tile
-//     height, the capacity C or the row's place in its tile, so a token's
-//     result does not depend on the batch it is in.  The combine sums a
-//     token's k slots in order j = 0 .. k-1 with explicit round-to-nearest
-//     adds and products, and no atomics anywhere.
+// What the bf16 design does about it.
+//   - Weights on the M side: out[e]^T = w[e]^T buf[e]^T, so 64 weight
+//     columns of one expert are the 16-row m-tiles of mma.m16n8k16 (four
+//     warps, each its own m-tiles) and the tokens its 8-wide n-tiles: at
+//     decode C = 8 fills an n-tile exactly.  A fragments come from the
+//     (D, F) row-major weight tile by ldmatrix.trans, B fragments from the
+//     (C, D) activations by ldmatrix.
+//   - The weight stream is the whole cost at decode, so it is pipelined: a
+//     block walks D in 64-deep stages through a ring of 3 shared
+//     stages filled by cp.async.cg, 2 of them in flight while
+//     one computes (the gated variant stages the gate and up tiles side by
+//     side); tiles are XOR-swizzled so ldmatrix is free of bank conflicts.
+//   - A block takes all the live rows of its expert, up to 64 (a prefill
+//     chunk's 256-row capacity splits into row blocks); n-tiles run over
+//     live rows only.  A block whose first row is at or past the expert's
+//     row count returns at once, so an expert no token picked is never
+//     read, and rows past the count are neither read (zero-filled in
+//     shared memory) nor written.
+//   - Batch invariance, bitwise: every output element is the f32 sum over
+//     k of one mma instruction per 16-deep step, in increasing k order,
+//     from zero, whatever C, the live rows or the row's place in its
+//     n-tile; there is no split-K and no reduction whose order depends on
+//     the batch.  The combine sums a token's k slots in order j = 0 .. k-1
+//     with explicit round-to-nearest adds and products, and no atomics
+//     anywhere, so a token's result does not depend on the batch it is in.
 //   - Rounding points are the TPU kernel's: each product is rounded to the
 //     input type (the Pallas call's output type), SiLU(g) is rounded, then
 //     SiLU(g) * u is rounded; the combine works in f32 and rounds once.
-//   - The weights stream with 16-byte loads when F allows; the products
-//     run on the CUDA cores in f32 (tensor cores are later work).
+//   - Ragged shapes (D % 8 or F % 8 != 0, pointers not 16-byte aligned)
+//     run in the same kernel, staged element by element with zero fill.
+// The f32 kernel keeps a (BM x 64) output tile a block, 32-deep stages and
+// one fmaf chain per output element in k order, so it is batch-invariant
+// in the same way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -302,16 +316,13 @@ moe_combine_kernel(const T* __restrict__ out, const int* __restrict__ slot,
   y[(size_t)t * d + c] = from_f32<T>(acc);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 template <typename T>
 cudaError_t gmm(const void* a, const void* w, const void* w_up, void* out,
                 const int* rows, int E, int C, int D, int F,
                 cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(T);
-  const int vec = F % kVec == 0 && aligned16(w) && (!w_up || aligned16(w_up));
+  const int vec =
+      F % kVec == 0 && mma::aligned16(w) && (!w_up || mma::aligned16(w_up));
   const int tm = C <= 2 * kRowGroups ? 1 : 4;
   const int bm = kRowGroups * tm;
   dim3 grid((C + bm - 1) / bm, (F + kBN - 1) / kBN, E);
@@ -337,6 +348,195 @@ cudaError_t gmm(const void* a, const void* w, const void* w_up, void* out,
   return cudaGetLastError();
 }
 
+constexpr int kMmaThreads = 128;  // four warps
+constexpr int kMmaBN = 64;        // weight columns (output features) a block
+constexpr int kMmaBK = 64;        // depth a stage
+constexpr int kMmaBR = 64;        // rows (tokens) a block, at most
+constexpr int kMmaStages = 3;     // shared-memory stages in the ring
+
+// one ring slot: the weight tile (two, gated) and the activation rows a
+// block can hold, min(C rounded up to 8, 64), so that a decode launch (C =
+// 8) keeps its shared memory to the weights and fits more blocks an SM
+__host__ __device__ constexpr uint32_t mma_stage_bytes(bool gated, int C) {
+  return (gated ? 2u : 1u) * kMmaBK * kMmaBN * 2u +
+         (uint32_t)((C + 7) / 8 * 8 < kMmaBR ? (C + 7) / 8 * 8 : kMmaBR) *
+             kMmaBK * 2u;
+}
+
+// One (up to 64 rows x kMmaBN columns) tile of out[e] = a[e] @ w[e] (or,
+// gated, of silu(a[e] @ w[e]) * (a[e] @ w_up[e])) in bf16 on the tensor
+// cores, computed as its transpose: weight columns on mma's M side, rows on
+// its N side.  Grid (row blocks, column blocks, E).  `rows` (E,) int32 or
+// null: rows at or past rows[e] are neither read nor written.  `vec`: rows
+// of a, w, w_up and out start 16-byte aligned (cp.async and 16-byte
+// stores); else the same tiles are staged element by element.
+template <bool kGated>
+__global__ void __launch_bounds__(kMmaThreads)
+gmm_mma_kernel(const __nv_bfloat16* __restrict__ a,
+               const __nv_bfloat16* __restrict__ w,
+               const __nv_bfloat16* __restrict__ w_up,
+               __nv_bfloat16* __restrict__ out, const int* __restrict__ rows,
+               int C, int D, int F, int vec) {
+  constexpr int kNT = kMmaBR / 8;         // n-tiles (8 rows) a block
+  constexpr int kWPitch = kMmaBN / 8;     // chunks a weight tile row
+  constexpr int kAPitch = kMmaBK / 8;     // chunks an activation tile row
+  constexpr uint32_t kWBytes = kMmaBK * kMmaBN * 2;
+  constexpr uint32_t kAOff = (kGated ? 2 : 1) * kWBytes;
+  const uint32_t stage_bytes = mma_stage_bytes(kGated, C);
+
+  const int e = blockIdx.z;
+  const int n_rows = rows ? min(rows[e], C) : C;
+  const int row0 = blockIdx.x * kMmaBR;
+  if (row0 >= n_rows) return;  // uniform over the block
+  const int live = min(n_rows - row0, kMmaBR);
+  const int n_tiles = (live + 7) / 8;
+  const int col0 = blockIdx.y * kMmaBN;
+  const __nv_bfloat16* A = a + ((size_t)e * C + row0) * D;
+  const __nv_bfloat16* W = w + (size_t)e * D * F;
+  const __nv_bfloat16* U = kGated ? w_up + (size_t)e * D * F : nullptr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_k = (D + kMmaBK - 1) / kMmaBK;
+
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t s0 = mma::smem_addr(smem_tc);
+
+  // stage kt of the depth into ring slot `slot`: weight rows k0 .. k0 + 63
+  // (columns col0 ..), activation rows of the live n-tiles (zero past
+  // `live`), zero past D and F
+  auto load_stage = [&](int slot, int kt) {
+    const uint32_t base = s0 + slot * stage_bytes;
+    const int k0 = kt * kMmaBK;
+    for (int i = threadIdx.x; i < kMmaBK * kWPitch; i += kMmaThreads) {
+      const int r = i / kWPitch, c = i % kWPitch;
+      const int d = k0 + r, f = col0 + 8 * c;
+      const bool in = d < D && f < F;
+      const size_t off = in ? (size_t)d * F + f : 0;
+      const uint32_t at = base + mma::swz(r, c, kWPitch);
+      mma::stage16(at, W + off, in, F - f, vec);
+      if constexpr (kGated) mma::stage16(at + kWBytes, U + off, in, F - f, vec);
+    }
+    for (int i = threadIdx.x; i < n_tiles * 8 * kAPitch; i += kMmaThreads) {
+      const int r = i / kAPitch, c = i % kAPitch;
+      const int d = k0 + 8 * c;
+      const bool in = r < live && d < D;
+      mma::stage16(base + kAOff + mma::swz(r, c, kAPitch),
+                   A + (in ? (size_t)r * D + d : 0), in, D - d, vec);
+    }
+  };
+
+  // each warp one 16-column m-tile
+  float acc[kNT][4], accu[kGated ? kNT : 1][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[nt][i] = 0.f;
+      if constexpr (kGated) accu[nt][i] = 0.f;
+    }
+
+#pragma unroll
+  for (int st = 0; st < kMmaStages - 1; ++st) {
+    if (st < n_k) load_stage(st, st);
+    mma::cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    mma::cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // stage kt landed; every warp is done with kt - 1
+    const int next = kt + kMmaStages - 1;
+    if (next < n_k) load_stage(next % kMmaStages, next);
+    mma::cp_async_commit();
+
+    const uint32_t base = s0 + (kt % kMmaStages) * stage_bytes;
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
+      uint32_t af[4], uf[4];
+      const uint32_t at = mma::swz(16 * ks + (lane & 7) + ((lane >> 4) << 3),
+                                   2 * warp + ((lane >> 3) & 1), kWPitch);
+      mma::ldsm_x4_t(af, base + at);
+      if constexpr (kGated) mma::ldsm_x4_t(uf, base + kWBytes + at);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        if (nt >= n_tiles) break;  // uniform over the block
+        uint32_t b0, b1;
+        mma::ldsm_x2(b0, b1, base + kAOff +
+                                 mma::swz(8 * nt + (lane & 7),
+                                          2 * ks + ((lane >> 3) & 1), kAPitch));
+        mma::mma_bf16(acc[nt], af, b0, b1);
+        if constexpr (kGated) mma::mma_bf16(accu[nt], uf, b0, b1);
+      }
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: slot 0 holds the output tile
+
+  // C fragments -> a (rows x kMmaBN) bf16 tile, then out by rows
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    if (nt >= n_tiles) break;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int f = 16 * warp + g + 8 * (i >> 1);
+      const int r = 8 * nt + 2 * t4 + (i & 1);
+      float v = acc[nt][i];
+      if constexpr (kGated) {
+        // each product rounded to bf16, silu(g) rounded, then silu(g) * u
+        const float gv = round_to<__nv_bfloat16>(v);
+        const float u = round_to<__nv_bfloat16>(accu[nt][i]);
+        const float s = round_to<__nv_bfloat16>(gv / (1.f + expf(-gv)));
+        v = s * u;
+      }
+      const __nv_bfloat16 h = __float2bfloat16(v);
+      asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(
+                       s0 + mma::swz(r, f >> 3, kWPitch) + 2 * (f & 7)),
+                   "h"(__bfloat16_as_ushort(h))
+                   : "memory");
+    }
+  }
+  __syncthreads();
+  __nv_bfloat16* O = out + ((size_t)e * C + row0) * F;
+  for (int i = threadIdx.x; i < live * kWPitch; i += kMmaThreads) {
+    const int r = i / kWPitch, c = i % kWPitch;
+    const int f = col0 + 8 * c;
+    if (f >= F) continue;
+    uint32_t v[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "r"(s0 + mma::swz(r, c, kWPitch))
+                 : "memory");
+    __nv_bfloat16* to = O + (size_t)r * F + f;
+    if (vec) {
+      *reinterpret_cast<uint4*>(to) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < F - f) to[j] = h[j];
+    }
+  }
+}
+
+cudaError_t gmm_bf16(const void* a, const void* w, const void* w_up,
+                     void* out, const int* rows, int E, int C, int D, int F,
+                     cudaStream_t st) {
+  const int vec = D % 8 == 0 && F % 8 == 0 && mma::aligned16(a) &&
+                  mma::aligned16(w) && (!w_up || mma::aligned16(w_up)) &&
+                  mma::aligned16(out);
+  dim3 grid((C + kMmaBR - 1) / kMmaBR, (F + kMmaBN - 1) / kMmaBN, E);
+  const auto* A = static_cast<const __nv_bfloat16*>(a);
+  const auto* W = static_cast<const __nv_bfloat16*>(w);
+  const auto* U = static_cast<const __nv_bfloat16*>(w_up);
+  auto* O = static_cast<__nv_bfloat16*>(out);
+  const bool gated = w_up != nullptr;
+  auto kernel = gated ? gmm_mma_kernel<true> : gmm_mma_kernel<false>;
+  const int bytes = kMmaStages * (int)mma_stage_bytes(gated, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kMmaThreads, bytes, st>>>(A, W, U, O, rows, C, D, F, vec);
+  return cudaGetLastError();
+}
+
 constexpr int kPerBlock = 8;  // assignments each dispatch block gathers
 
 template <typename T>
@@ -344,7 +544,7 @@ cudaError_t dispatch(const void* x, const int64_t* idx, int* slot,
                      int* counts, void* buf, int n_tok, int k, int d, int E,
                      int C, cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(T);
-  const int vec = d % kVec == 0 && aligned16(x) && aligned16(buf);
+  const int vec = d % kVec == 0 && mma::aligned16(x) && mma::aligned16(buf);
   const int n = n_tok * k;
   const size_t bytes = (size_t)(kDispatchWarps * E + E + kPerBlock) * 4;
   auto kernel = moe_dispatch_kernel<T>;
@@ -371,7 +571,8 @@ cudaError_t combine(const void* out, const int* slot, const float* gate,
 }  // namespace
 
 // a (E, C, D), w/w_up (E, D, F) and out (E, C, F), contiguous, all of one
-// type (`bf16` 1: bfloat16, 0: float32).  w_up null: out = a @ w; else
+// type (`bf16` 1: bfloat16 on the tensor cores, 0: float32 on the CUDA
+// cores).  w_up null: out = a @ w; else
 // out = silu(a @ w) * (a @ w_up) with K5's roundings.  rows (E,) int32 or
 // null.  Returns cudaGetLastError() after the launch.
 extern "C" int grouped_matmul_launch(const void* a, const void* w,
@@ -381,7 +582,7 @@ extern "C" int grouped_matmul_launch(const void* a, const void* w,
   if (E == 0 || C == 0 || F == 0) return 0;
   const int* r = static_cast<const int*>(rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? gmm<__nv_bfloat16>(a, w, w_up, out, r, E, C, D, F, st)
+  return bf16 ? gmm_bf16(a, w, w_up, out, r, E, C, D, F, st)
               : gmm<float>(a, w, w_up, out, r, E, C, D, F, st);
 }
 

@@ -2,10 +2,13 @@
 
 Full-sequence attention with GQA and causal / sliding-window masks, as the
 logprob recompute and the train step run it in every layer.  The forward
-kernel is ``csrc/flash_attention.cu`` and replaces ``flash_attention_bhsd``
-of the JAX package's ``kernels/flash_attention.py``; the backward kernel
-is ``csrc/flash_attention_bwd.cu`` (the JAX package has none: it trains
-through XLA).  :class:`FlashAttention` ties the two into autograd.
+kernels are ``csrc/flash_attention.cu`` and replace ``flash_attention_bhsd``
+of the JAX package's ``kernels/flash_attention.py``: bf16 (the recompute)
+runs on the tensor cores (wgmma, fed by TMA), f32 (the train step, TF32
+off) on the CUDA cores.  The backward kernel is
+``csrc/flash_attention_bwd.cu`` (the JAX package has none: it trains
+through XLA), on the CUDA cores for both types.  :class:`FlashAttention`
+ties the two into autograd.
 
 Layouts:
   q, out  (B, H, S, D)   bf16 or f32; any (b, h, s) strides, unit D stride
@@ -89,11 +92,34 @@ def _unit_d(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Every (b, head, s) row of the (B, heads, S, D) view starts on a
+    16-byte boundary, as the bf16 forward kernel's TMA copies need: an
+    aligned base and strides in multiples of 16 bytes along every
+    dimension with more than one index."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or st % step == 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with a unit D stride and, for bf16, rows 16-byte aligned for
+    the forward kernel's TMA: a view that is not is copied into fresh rows
+    padded to a multiple of 8 elements (the padding is never read)."""
+    t = _unit_d(t)
+    if t.dtype == torch.bfloat16 and not rows_aligned(t):
+        D = t.shape[-1]
+        return t.new_empty((*t.shape[:-1], -(-D // 8) * 8))[..., :D].copy_(t)
+    return t
+
+
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the forward kernel on the tensors' card; returns
-    (out (B, H, S, D) in q's type and layout, lse (B, H, S) f32)."""
+    (out (B, H, S, D) in q's type and layout, lse (B, H, S) f32).  A bf16
+    view whose rows are not 16-byte aligned is copied first (see
+    :func:`_staged`); the output is then contiguous."""
     _check(q, k, v)
-    q, k, v = map(_unit_d, (q, k, v))
+    q, k, v = map(_staged, (q, k, v))
     B, H, S, D = q.shape
     out = torch.empty_like(q)  # q's strides: the model layout stays intact
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)

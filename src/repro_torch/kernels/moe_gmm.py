@@ -8,7 +8,9 @@ drops (capacity ``decode_capacity(T)``), gate and up products with SiLU
 gating, the down product and the gate-weighted combine.  The kernels are
 ``csrc/moe_gmm.cu``, built by :mod:`repro_torch.kernels._build`; they
 replace ``grouped_matmul`` and ``moe_decode_gmm`` of the JAX package's
-``kernels/moe_gmm.py``.
+``kernels/moe_gmm.py``.  The grouped matmul is one kernel a type: bf16
+(serving) on the tensor cores, f32 on the CUDA cores, so f32 sums keep
+full precision without TF32.
 
 Layouts:
   buf   (E, C, D)  bf16 or f32, w (E, D, F) of the same type

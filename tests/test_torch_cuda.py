@@ -219,10 +219,17 @@ FLASH_CASES = [
     (2, 32, 32, 300, 80, True, 64),    # zamba2 heads (MHA, D 80), window
     (2, 32, 32, 1024, 80, True, 4096),  # zamba2 train microbatch
 ]
+# the forward kernels also at the bf16 kernel's edges
+FLASH_FWD_CASES = FLASH_CASES + [
+    (2, 4, 2, 300, 40, True, 0),     # D 40: zero-padded to 48 in the kernel
+    (1, 4, 2, 257, 100, True, 33),   # D 100: rows not 16-byte aligned
+    (1, 8, 2, 2048, 128, True, 0),   # a long sequence
+    (3, 8, 2, 1, 128, True, 0),      # one token at yi-9b's head width
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,KV,S,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("B,H,KV,S,D,causal,window", FLASH_FWD_CASES)
 def test_flash_attention_kernel_matches_plain(dev, B, H, KV, S, D, causal,
                                               window, dtype):
     q, k, v, _ = _flash_inputs(S + D, B, H, KV, S, D, dtype, dev)
@@ -257,6 +264,31 @@ def test_flash_attention_bwd_kernel_matches_plain_autograd(
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= GRAD_RTOL[dtype] * scale + 1e-6, (name, err, scale)
+
+
+@pytest.mark.parametrize("how", ["offset", "stride"])
+def test_flash_attention_kernel_copies_unaligned_views(dev, how):
+    """bf16 views whose rows do not start 16-byte aligned (a base one
+    element off, or rows 68 elements apart) go through the wrapper's copy
+    into the tensor-core kernel and give the plain version's output."""
+    B, H, KV, S, D = 2, 4, 2, 130, 64
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def view(heads):
+        if how == "offset":
+            base = torch.randn(B * heads * S * D + 1, generator=g, device=dev)
+            return base.to(torch.bfloat16)[1:].view(B, heads, S, D)
+        return torch.randn((B, heads, S, D + 4), generator=g, device=dev
+                           ).to(torch.bfloat16)[..., :D]
+
+    q, k, v = view(H), view(KV), view(KV)
+    assert not any(map(fa.rows_aligned, (q, k, v)))
+    out, lse = fa.flash_attention_bhsd(q, k, v, causal=True, window=0)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
 
 def test_flash_attention_autograd_in_model_layout(dev):
@@ -378,6 +410,10 @@ def _rel_err(got, want) -> float:
     (40, 256, 512, 1536, True),
     (3, 13, 100, 70, True),       # nothing divides a tile or a vector
     (2, 1, 7, 5, False),
+    # capacities that end mid n-tile (9, 17, 100), fill one or several
+    # exactly (16, 64) or span two row blocks (100), at gate/up widths
+    *[(6, C, 1536, 512, ragged) for C in (9, 16, 17, 64, 100)
+      for ragged in (False, True)],
 ])
 def test_grouped_matmul_kernel_matches_plain(dev, E, C, D, F, ragged, dtype):
     rng = np.random.default_rng(E * C + D)
@@ -457,14 +493,15 @@ def test_moe_decode_kernel_matches_plain(dev, T, E, k, d, f, same, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [8, 256])
+@pytest.mark.parametrize("T", [8, 256, 1, 9, 64])
 def test_moe_decode_kernel_is_batch_invariant_bitwise(dev, T, dtype):
-    """A token's output is the same bits alone as inside a batch of T (a
-    decode batch of 8, a prefill chunk of 256): no row's sum depends on
-    the capacity, the tile or its neighbours."""
+    """Every token's output is the same bits alone as inside a batch of T
+    (a decode batch of 8, a prefill chunk of 256, and capacities that move
+    a token's row between n-tiles and row blocks of K4): no row's sum
+    depends on the capacity, the tile or its neighbours."""
     x, idx, gate, *ws = _moe_inputs(T, T, 40, 8, 1536, 512, dtype, dev)
     full = gmm.moe_decode_gmm(x, idx, gate, *ws)
-    for i in (0, 3, T - 1):
+    for i in range(T):
         alone = gmm.moe_decode_gmm(x[i:i + 1], idx[i:i + 1], gate[i:i + 1],
                                    *ws)
         assert torch.equal(alone[0], full[i]), i

@@ -164,3 +164,34 @@ def test_flash_cuda_wrappers_refuse_cpu_tensors():
         fa.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
     assert fa.flash_attention_bhsd.launches == f0
     assert fa.flash_attention_bwd.launches == b0
+
+
+def test_bf16_views_are_staged_with_aligned_rows():
+    """The forward kernel's bf16 path reads rows by 16-byte TMA copies: the
+    wrapper keeps views whose rows are aligned, copies those that are not
+    (into rows padded to a multiple of 8 elements where D % 8 != 0), and
+    leaves f32 (the CUDA-core kernel) as it is."""
+    bf = torch.bfloat16
+    dense = torch.zeros((2, 4, 33, 64), dtype=bf)
+    assert dense.data_ptr() % 16 == 0
+    model = torch.zeros((2, 33, 4, 64), dtype=bf).transpose(1, 2)
+    # b and h have one index each: their (odd) strides are never taken
+    single = torch.zeros(512, dtype=bf).as_strided((1, 1, 4, 64),
+                                                   (3, 5, 64, 1))
+    offset = torch.zeros(2 * 4 * 33 * 64 + 1, dtype=bf)[1:].view(2, 4, 33,
+                                                                   64)
+    wide = torch.zeros((2, 4, 33, 68), dtype=bf)[..., :64]
+    for t in (dense, model, single):
+        assert fa.rows_aligned(t)
+        assert fa._staged(t) is t
+    for t in (offset, wide):
+        assert not fa.rows_aligned(t)
+        c = fa._staged(t)
+        assert c.data_ptr() != t.data_ptr() and fa.rows_aligned(c)
+        assert torch.equal(c, t)
+    odd = torch.randn((2, 4, 33, 100)).to(bf)  # rows 200 bytes apart
+    assert not fa.rows_aligned(odd)
+    c = fa._staged(odd)
+    assert fa.rows_aligned(c) and c.stride(2) == 104 and torch.equal(c, odd)
+    f32 = torch.zeros(2 * 4 * 33 * 64 + 1)[1:].view(2, 4, 33, 64)
+    assert fa._staged(f32) is f32
