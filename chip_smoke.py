@@ -7,12 +7,14 @@ Run from the repository root with no arguments:
 
 Phases, one line of output each (more for the kernels):
   1. header     the card's name and power limit, the kernel build time,
-                every kernel's registers and spills, and that the bf16
+                every kernel's registers and spills, that the bf16
                 kernels of K3's forward and K4 run their products on the
-                tensor cores (HGMMA, HMMA in every instance's SASS) and
-                spill nothing;
+                tensor cores (HGMMA, HMMA in every instance's SASS), and
+                that they and K3's backward spill nothing;
   2. kernels    each hand-written kernel against its plain PyTorch version
-                at the four models' shapes, with CUDA-event timings: paged
+                at the four models' shapes, with CUDA-event timings (the
+                profiler's device time for the kernels that run shorter
+                than their launch takes the host): paged
                 attention and sampling (decode; sampling also at mamba2's
                 and zamba2's vocabularies), flash attention forward and
                 backward (checked at B=4 with a tail and a window, then
@@ -135,6 +137,9 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
 # instruction of their products: K3's forward (wgmma) and K4, also inside K5
 # (mma.sync)
 TC_KERNELS = {"flash_fwd_wgmma_kernel": "HGMMA", "gmm_mma_kernel": "HMMA"}
+# kernels that must spill nothing: those, and K3's backward products, whose
+# f32 accumulators live in registers
+NO_SPILL = (*TC_KERNELS, "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -153,9 +158,10 @@ def kernel_name(mangled: str) -> str:
 
 def check_build(so: Path) -> None:
     """Every kernel's registers and spills from the build's ``-Xptxas -v``
-    log; the tensor-core kernels must spill nothing, and the SASS of every
-    instance (``cuobjdump -sass`` of the built library) must hold their
-    tensor-core product: HGMMA (wgmma) or HMMA (mma.sync)."""
+    log; the tensor-core kernels and K3's backward must spill nothing, and
+    the SASS of every tensor-core instance (``cuobjdump -sass`` of the
+    built library) must hold its product: HGMMA (wgmma) or HMMA
+    (mma.sync)."""
     from repro_torch.kernels import _build
 
     name, spills = "", {}
@@ -168,7 +174,7 @@ def check_build(so: Path) -> None:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             log(f"header: ptxas {kernel_name(name)}: {regs} registers, "
                 f"{spills.get(name, '')}")
-    for key in TC_KERNELS:
+    for key in NO_SPILL:
         found = [n for n in spills if key in n]
         assert found, f"{key}: not in the build log"
         for n in found:
@@ -184,7 +190,8 @@ def check_build(so: Path) -> None:
         assert counts and all(counts.values()), f"{key}: no {op} in {counts}"
         log(f"header: SASS of {key}: {op} in every instance ("
             + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
-            + "); no spills")
+            + ")")
+    log(f"header: no spills in {', '.join(NO_SPILL)}")
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +245,11 @@ def check_paged_attention(dtype, results: dict, heads=(32, 4, 128),
         kp_, vp_ = pools[next(it) % n_pools]
         pa.paged_attention_plain(q, kp_, vp_, tables, lens)
 
-    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    # a launch takes the host about as long as the card takes to run it,
+    # so back-to-back calls between two events time the host; the
+    # profiler's device time is the kernel's own
+    call_ms, plain_call_ms = time_ms(kernel), time_ms(plain)
+    ms, plain_ms = device_ms(kernel), device_ms(plain)
     ctx = int(lens.sum())
     elem = torch.finfo(dtype).bits // 8
     nbytes = (2 * ctx * KV * D * elem + 2 * B * H * D * elem
@@ -248,8 +259,9 @@ def check_paged_attention(dtype, results: dict, heads=(32, 4, 128),
     name = str(dtype).split(".")[-1]
     log(f"kernels: paged_attention {arch} {name} B={B} H={H} KV={KV} D={D} "
         f"page={page} ctx={lens.tolist()} max|err|={err:.3g} (tol {tol}) "
-        f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms bound={bms:.4f} ms "
-        f"({by})")
+        f"device time: kernel={ms:.4f} ms plain={plain_ms:.4f} ms; "
+        f"event-timed calls: kernel={call_ms:.4f} ms plain="
+        f"{plain_call_ms:.4f} ms; bound={bms:.4f} ms ({by})")
     if dtype == torch.bfloat16 and arch == "yi-9b":  # the JSON entry
         results["paged_attention"] = dict(
             name="paged_attention_bhd", route="cuda",
@@ -927,10 +939,10 @@ def check_ssm_update(results: dict) -> None:
 
 def check_flash_zamba2() -> None:
     """K3 at zamba2's shared attention heads (MHA, D 80) with its window
-    4096: the recompute's forward (16 x 512, bf16; beside
+    4096: the recompute's forward (16 x 512, bf16) and the train
+    microbatch's forward and backward (2 x 1024, f32), timed beside
     ``scaled_dot_product_attention``, causal, which the window does not cut
-    at 512 tokens) and the train microbatch's forward and backward (2 x
-    1024, f32), timed."""
+    at these lengths."""
     import torch
     import torch.nn.functional as F
 
@@ -948,7 +960,14 @@ def check_flash_zamba2() -> None:
         if backward:
             bms = time_ms(lambda: fa.flash_attention_bwd(
                 q, k, v, c["out"], c["lse"], c["dout"], **kw))
-            line += f"; bwd kernel={bms:.4f} ms"
+            lib = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
+            lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib, c["dout"], retain_graph=True))
+            bound, by = flash_bounds(dtype, B, S, ZAMBA2_HEADS)[1]
+            line += (f"; bwd kernel={bms:.4f} ms sdpa bwd={lib_bwd_ms:.4f} "
+                     f"ms bound={bound:.4f} ms ({by})")
+            del lib, lib_out
         else:
             lib = [t.contiguous() for t in (q, k, v)]
             with torch.no_grad():
@@ -1257,10 +1276,12 @@ def log_breakdown(tag: str, what: str, wall: float, rows, kernels) -> None:
 # K3's bf16 forward (the recompute's) first, then its f32 forward and
 # backward (the train step's)
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
-                 "flash_bwd_dkdv_kernel",
-                 "flash_bwd_dq_kernel", "flash_bwd_delta_kernel")
+                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_delta_kernel", "flash_bwd_sum_kernel")
 
 
+# K1 splits a context over a cluster and merges the splits in the same
+# launch: one kernel name holds all of its time
 DECODE_KERNELS = ("paged_attention_kernel", "fused_sample_kernel")
 SSM_DECODE_KERNELS = ("ssm_update_kernel", "fused_sample_kernel")
 SSD_KERNELS = ("ssd_fwd_kernel", "ssd_bwd_state_kernel",

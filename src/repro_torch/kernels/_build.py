@@ -30,14 +30,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# C entry point -> argtypes; every entry returns cudaGetLastError()
+# C entry point -> argtypes; every launch entry returns cudaGetLastError()
 SIGNATURES = {
     # q, k, v, o, lse, strides[12], B, H, KV, S, D, causal, window, bf16,
     # stream
     "flash_attention_fwd_launch": [_P] * 5 + [_STRIDES] + [_I] * 8 + [_P],
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, strides[24], B, H, KV, S, D,
+    # q, k, v, o, dout, lse, work, dq, dk, dv, strides[24], B, H, KV, S, D,
     # causal, window, bf16, stream
     "flash_attention_bwd_launch": [_P] * 10 + [_STRIDES] + [_I] * 8 + [_P],
+    # B, H, KV, S, D, causal, window -> floats of the backward's f32 scratch
+    "flash_attention_bwd_workspace": [_I] * 7,
     # q, k_pages, v_pages, tables, lens, out, B, H, KV, D, page, nb,
     # q_bf16, kv_bf16, stream
     "paged_attention_bhd_launch": [_P] * 6 + [_I] * 8 + [_P],
@@ -121,7 +123,8 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = (ctypes.c_longlong if name.endswith("_workspace")
+                      else ctypes.c_int)
     return lib
 
 

@@ -7,7 +7,8 @@ of the JAX package's ``kernels/flash_attention.py``: bf16 (the recompute)
 runs on the tensor cores (wgmma, fed by TMA), f32 (the train step, TF32
 off) on the CUDA cores.  The backward kernel is
 ``csrc/flash_attention_bwd.cu`` (the JAX package has none: it trains
-through XLA), on the CUDA cores for both types.  :class:`FlashAttention`
+through XLA), on the CUDA cores in full f32 for both types, with exact
+zeros in dq and dk on rows that see one key.  :class:`FlashAttention`
 ties the two into autograd.
 
 Layouts:
@@ -147,13 +148,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         raise ValueError("lse must be the forward's contiguous (B, H, S) f32")
     q, k, v, out, dout = map(_unit_d, (q, k, v, out, dout))
     B, H, S, D = q.shape
+    KV = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
-    err = _build.library().flash_attention_bwd_launch(
+    lib = _build.library()
+    # dS tiles, delta = rowsum(dO * O), the head groups' partial dK and dV
+    work = torch.empty(lib.flash_attention_bwd_workspace(
+        B, H, KV, S, D, int(causal), int(window)), dtype=torch.float32,
+        device=q.device)
+    err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, out, dout, dq, dk, dv), B, H, k.shape[1], S, D,
+        _strides(q, k, v, out, dout, dq, dk, dv), B, H, KV, S, D,
         int(causal), int(window), _TYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")

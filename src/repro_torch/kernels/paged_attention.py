@@ -5,7 +5,10 @@ fixed-size pages of a (P, page, KV, D) pool, addressed through per-request
 block tables (page 0 is the trash page).  The kernel is
 ``csrc/paged_attention.cu``, built by :mod:`repro_torch.kernels._build`;
 it replaces ``paged_attention_bhd`` of the JAX package's
-``kernels/paged_attention.py``.
+``kernels/paged_attention.py``.  It deals each context's 32-token tiles
+over up to 8 blocks of a cluster and merges their softmax partials;
+:func:`split_partials_plain` and :func:`combine_splits_plain` are that
+split and merge in plain torch, for the tests.
 
 Layouts:
   q             (B, H, D)         bf16 or f32
@@ -55,6 +58,64 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens):
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def split_plan(nb: int, page: int):
+    """(tile tokens, number of splits) of a table of ``nb`` pages, as the
+    kernel's launcher in ``csrc/paged_attention.cu`` cuts it: tiles of
+    32 tokens (one page if pages are larger), dealt round-robin to at most
+    8 splits (split r takes tiles r, r + n_split, ...), from the table
+    width alone."""
+    pages_per_tile = 1 if page >= 32 else 32 // page
+    n_tiles = -(-nb // pages_per_tile)
+    return pages_per_tile * page, max(1, min(8, n_tiles))
+
+
+def split_partials_plain(q, k_pages, v_pages, block_tables, context_lens):
+    """Each split's softmax partial, in plain torch: (m, l, acc) per split
+    as the kernel keeps them before its merge: the running max m
+    (B, KV, n_split, G) of the scaled scores (-1e30 where every position
+    is past the context), l = sum exp(s - m) and acc = sum exp(s - m) v
+    (B, KV, n_split, G, D), all f32.  For the tests of
+    :func:`combine_splits_plain`."""
+    B, H, D = q.shape
+    _, page, KV, _ = k_pages.shape
+    G = H // KV
+    nb = block_tables.shape[1]
+    tile, n_split = split_plan(nb, page)
+    S = nb * page
+    k = k_pages[block_tables.long()].reshape(B, S, KV, D).float()
+    v = v_pages[block_tables.long()].reshape(B, S, KV, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, KV, G, D), k)
+    s = s / math.sqrt(D)
+    pos = torch.arange(S, device=q.device)
+    s = torch.where((pos[None, :] < context_lens.long()[:, None])
+                    [:, None, None, :], s, NEG_INF)
+    ms, ls, accs = [], [], []
+    for r in range(n_split):
+        mine = (pos // tile) % n_split == r  # this split's tiles
+        sr = torch.where(mine, s, NEG_INF)
+        m = sr.amax(dim=-1)
+        p = torch.where(m[..., None] <= NEG_INF * 0.5, 0.0,
+                        torch.exp(sr - m[..., None]))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v))
+    return (torch.stack(ms, 2), torch.stack(ls, 2), torch.stack(accs, 2))
+
+
+def combine_splits_plain(m, l, acc, dtype=torch.float32):
+    """Merge per-split partials in split order, as the kernel's cluster
+    does: weights exp(m_r - max m) (0 for a split with no live position),
+    out = sum w acc / sum w l, zeros where no split saw a live position.
+    Returns (B, H, D) in ``dtype``."""
+    B, KV, _, G, D = acc.shape
+    mx = m.amax(dim=2, keepdim=True)
+    w = torch.where(m <= NEG_INF * 0.5, 0.0, torch.exp(m - mx))
+    den = (w * l).sum(dim=2)
+    den = torch.where(den == 0.0, 1.0, den)
+    out = (w[..., None] * acc).sum(dim=2) / den[..., None]
+    return out.reshape(B, KV * G, D).to(dtype)
+
+
 def paged_attention_bhd(q, k_pages, v_pages, block_tables, context_lens):
     """Launch the CUDA kernel on the tensors' card; returns (B, H, D)."""
     B, H, D = q.shape
@@ -87,6 +148,10 @@ def paged_attention_bhd(q, k_pages, v_pages, block_tables, context_lens):
     if D % 8 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("head_dim must be a multiple of 8 and the page "
                          "pools 16-byte aligned")
+    # a warp carries at most 16 query rows and a lane 8 output columns
+    if H // KV > 64 or D > 256:
+        raise ValueError(f"{H // KV} query heads a KV head (at most 64) or "
+                         f"head_dim {D} (at most 256)")
     q = q.contiguous()
     tables = block_tables.contiguous()
     lens = context_lens.contiguous()

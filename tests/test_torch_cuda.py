@@ -72,6 +72,8 @@ def _paged_inputs(seed, B, H, KV, D, page, nb, dtype, dev):
     (3, 16, 2, 64, 2, 40),   # 2-token pages, 80-token tables
     (8, 32, 4, 128, 16, 9),  # yi-9b heads
     (8, 24, 8, 64, 16, 36),  # granite-moe-3b-a800m heads (3-way GQA)
+    (1, 32, 4, 128, 16, 256),  # one 4096-token context: 16 tiles a split
+    (3, 8, 2, 64, 64, 5),      # pages larger than the kernel's 32-key tile
 ])
 def test_paged_attention_kernel_matches_plain(dev, B, H, KV, D, page, nb,
                                               dtype):
@@ -88,6 +90,38 @@ def test_paged_attention_kernel_matches_plain(dev, B, H, KV, D, page, nb,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(got.float(), oracle.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(32, 4, 128), (24, 8, 64)])
+def test_paged_attention_kernel_split_edges(dev, H, KV, D, dtype):
+    """yi-9b's and granite-moe's heads at nb 64 (32-token tiles dealt to
+    8 splits): contexts that end mid-page, exactly on a tile boundary and
+    one past it, and a batch in which only one row reaches the last
+    split's tiles."""
+    page, nb = 16, 64
+    tile, n_split = pa.split_plan(nb, page)
+    assert (tile, n_split) == (32, 8)
+    q, kp, vp, tables, _ = _paged_inputs(H + D, 8, H, KV, D, page, nb,
+                                         dtype, dev)
+    lens = torch.tensor([0, 1, 37, 2 * tile, 2 * tile + 1, 200,
+                         (n_split - 1) * tile, nb * page],
+                        dtype=torch.int32, device=dev)
+    got = pa.paged_attention_bhd(q, kp, vp, tables, lens)
+    want = pa.paged_attention_plain(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    tol = PA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_is_repeatable_bitwise(dev, dtype):
+    q, kp, vp, tables, lens = _paged_inputs(11, 8, 32, 4, 128, 16, 64,
+                                            dtype, dev)
+    a = pa.paged_attention_bhd(q, kp, vp, tables, lens)
+    b = pa.paged_attention_bhd(q, kp, vp, tables, lens)
+    assert torch.equal(a, b)
 
 
 def test_paged_attention_kernel_mixed_types(dev):
@@ -226,6 +260,8 @@ FLASH_FWD_CASES = FLASH_CASES + [
     (1, 8, 2, 2048, 128, True, 0),   # a long sequence
     (3, 8, 2, 1, 128, True, 0),      # one token at yi-9b's head width
 ]
+# and the backward at window 1, where every row sees one key
+FLASH_BWD_CASES = FLASH_FWD_CASES + [(2, 4, 4, 200, 128, True, 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -247,7 +283,7 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, KV, S, D, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,KV,S,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("B,H,KV,S,D,causal,window", FLASH_BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_plain_autograd(
         dev, B, H, KV, S, D, causal, window, dtype):
     q, k, v, dout = _flash_inputs(S * 3 + D, B, H, KV, S, D, dtype, dev)
@@ -264,6 +300,21 @@ def test_flash_attention_bwd_kernel_matches_plain_autograd(
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= GRAD_RTOL[dtype] * scale + 1e-6, (name, err, scale)
+    if S == 1 or window == 1:  # one key a row: dS is exactly zero
+        assert bool((got[0] == 0).all()) and bool((got[1] == 0).all())
+    if window == 1 and H == KV:  # and P exactly 1: dv is dout itself
+        assert torch.equal(got[2], dout)
+
+
+def test_flash_attention_bwd_kernel_is_repeatable_bitwise(dev):
+    """yi-9b's train microbatch: no atomics, sums in a fixed order."""
+    q, k, v, dout = _flash_inputs(9, 2, 32, 4, 1024, 128, torch.float32,
+                                  dev)
+    out, lse = fa.flash_attention_bhsd(q, k, v, causal=True)
+    a = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    b = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("how", ["offset", "stride"])

@@ -135,6 +135,38 @@ def test_flash_plain_grads_match_jax_grad(B, H, KV, S, D, causal, window):
                                    rtol=1e-4, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (2, 4, 4, 40, 16),   # MHA: dv is dout itself
+    (1, 6, 2, 33, 8),    # GQA: dv sums the group's douts
+    (3, 2, 1, 1, 32),    # one token: every row sees one key at any window
+])
+def test_flash_plain_grads_are_exact_on_one_key_rows(B, H, KV, S, D):
+    """Window 1, so every row sees only its own key: P is exactly 1 there,
+    dS = P (dP - rowsum(P dP)) is exactly 0, so dq and dk are exact zeros
+    and dv the group's sum of dout, in autograd through the plain version
+    (the backward kernel's reference on the card) as in jax.grad of the
+    JAX oracle."""
+    q, k, v = _inputs(S * 5 + H, B, H, KV, S, D)
+    dout = np.random.default_rng(S + D).standard_normal(q.shape).astype(
+        np.float32)
+
+    def jloss(q, k, v):
+        o = jref.flash_attention_ref(q, k, v, causal=True, window=1)
+        return jnp.sum(o * dout)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out, _ = fa.flash_attention_plain(*leaves, causal=True, window=1)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    group_sum = dout.reshape(B, KV, H // KV, S, D).sum(axis=2)
+    for g in (got, [torch.from_numpy(np.array(w)) for w in want]):
+        assert (g[0] == 0).all() and (g[1] == 0).all()
+        np.testing.assert_allclose(g[2].numpy(), group_sum, atol=1e-6,
+                                   rtol=1e-6)
+    if H == KV:
+        assert np.array_equal(got[2].numpy(), dout)
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 50),
                                            (False, 0)])
 def test_flash_ops_model_layout_matches_jax_ops(causal, window):

@@ -93,6 +93,46 @@ def test_paged_attention_empty_context_and_trash_page(lens):
     assert (poisoned[lens == 0] == 0).all()
 
 
+@pytest.mark.parametrize("page,nb,lens", [
+    (16, 64, [0, 1, 37, 64, 65, 200, 224, 1024]),  # one row in the last split
+    (16, 64, [0, 0, 0, 0]),                        # every context empty
+    (4, 20, [0, 5, 16, 33, 64, 80]),               # 32-token tiles of 8 pages
+    (2, 40, [0, 3, 32, 33, 79, 80]),               # 2-token pages
+    (8, 4, [0, 9, 32]),                            # one split
+    (64, 3, [0, 70, 192]),                         # pages larger than a tile
+])
+def test_split_partials_merge_to_plain_and_jax(page, nb, lens):
+    """The kernel's split-K in plain torch: per-split softmax partials,
+    merged in split order, give paged_attention_plain's output and JAX's
+    paged_attention_bhd (interpret mode).  Splits whose tiles all lie past
+    a context are empty (their rows fully masked, weight 0) and an empty
+    context gives zeros; the poisoned trash page never leaks."""
+    B, H, KV, D = len(lens), 8, 2, 32
+    q, kp, vp, tables = _paged_inputs(page + nb, B, H, KV, D, page, nb)
+    kp[0] = 1e3
+    vp[0] = 1e3
+    lens = np.asarray(lens, np.int32)
+    # pages past each context point at the trash page, as the engine's do
+    for i, n in enumerate(lens):
+        tables[i, -(-n // page):] = 0
+    tq, tk, tv, tt, tl = map(_t, (q, kp, vp, tables, lens))
+    tile, n_split = pa.split_plan(nb, page)
+    assert n_split == min(8, -(-nb * page // tile))
+    m, l, acc = pa.split_partials_plain(tq, tk, tv, tt, tl)
+    assert m.shape == (B, KV, n_split, H // KV)
+    past = np.arange(n_split)[None, :] * tile >= lens[:, None]  # empty splits
+    assert (m.numpy().transpose(0, 2, 1, 3)[past] == -1e30).all()
+    assert (l.numpy().transpose(0, 2, 1, 3)[past] == 0).all()
+    got = pa.combine_splits_plain(m, l, acc).numpy()
+    plain = pa.paged_attention_plain(tq, tk, tv, tt, tl).numpy()
+    want = np.asarray(jpa.paged_attention_bhd(
+        *map(jnp.asarray, (q, kp, vp, tables, lens)), interpret=True))
+    np.testing.assert_allclose(got, plain, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert (got[lens == 0] == 0).all()
+    assert np.abs(got).max() < 10  # nothing of the 1e3 pages
+
+
 def test_paged_attention_plain_keeps_bf16():
     q, kp, vp, tables = _paged_inputs(2, 2, 4, 2, 16, 4, 3)
     lens = np.array([5, 12], np.int32)
