@@ -8,15 +8,16 @@ Run from the repository root with no arguments:
 Phases, one line of output each (more for the kernels):
   1. header     the card's name and power limit, the kernel build time,
                 every kernel's registers and spills, that the bf16
-                kernels of K3's forward and K4 run their products on the
-                tensor cores (HGMMA, HMMA in every instance's SASS), and
-                that they and K3's backward spill nothing;
+                kernels of K3's forward and K4 and both K6 forwards run
+                their products on the tensor cores (HGMMA, HMMA in every
+                instance's SASS), and that they and K3's backward spill
+                nothing;
   2. kernels    each hand-written kernel against its plain PyTorch version
                 at the four models' shapes, with CUDA-event timings (the
                 profiler's device time for the kernels that run shorter
-                than their launch takes the host): paged
-                attention and sampling (decode; sampling also at mamba2's
-                and zamba2's vocabularies), flash attention forward and
+                than their launch takes the host, and beside the events
+                for K2 and K6): paged attention and sampling (decode;
+                sampling at all four vocabularies), flash attention forward and
                 backward (checked at B=4 with a tail and a window, then
                 checked and timed at the recompute's and the train
                 microbatch's shapes, zamba2's D=80 heads and window among
@@ -133,12 +134,13 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
                                        else "operations")
 
 
-# the bf16 kernels whose products run on the tensor cores, and the SASS
-# instruction of their products: K3's forward (wgmma) and K4, also inside K5
-# (mma.sync)
-TC_KERNELS = {"flash_fwd_wgmma_kernel": "HGMMA", "gmm_mma_kernel": "HMMA"}
+# the kernels whose products run on the tensor cores, and the SASS
+# instruction of their products: K3's bf16 forward (wgmma), K4's bf16 (also
+# inside K5) and K6's forward in bf16 and in f32 (3xTF32), all mma.sync
+TC_KERNELS = {"flash_fwd_wgmma_kernel": "HGMMA", "gmm_mma_kernel": "HMMA",
+              "ssd_fwd_mma_kernel": "HMMA", "ssd_fwd_tf32_kernel": "HMMA"}
 # kernels that must spill nothing: those, and K3's backward products, whose
-# f32 accumulators live in registers
+# accumulators live in registers
 NO_SPILL = (*TC_KERNELS, "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
@@ -158,10 +160,10 @@ def kernel_name(mangled: str) -> str:
 
 def check_build(so: Path) -> None:
     """Every kernel's registers and spills from the build's ``-Xptxas -v``
-    log; the tensor-core kernels and K3's backward must spill nothing, and
-    the SASS of every tensor-core instance (``cuobjdump -sass`` of the
-    built library) must hold its product: HGMMA (wgmma) or HMMA
-    (mma.sync)."""
+    log; the tensor-core kernels and K3's backward must spill nothing,
+    and the SASS of every tensor-core instance
+    (``cuobjdump -sass`` of the built library) must hold its product:
+    HGMMA (wgmma) or HMMA (mma.sync)."""
     from repro_torch.kernels import _build
 
     name, spills = "", {}
@@ -300,9 +302,12 @@ def check_fused_sample(results: dict, V: int = 65536, vocab: int = 64000,
         # |logprob| ~ 10-20: f32 sums over 65536 entries in another order
         tol = 1e-4
         assert err <= tol, f"fused sample T={temp}: |lp err| {err} > {tol}"
-        ms = time_ms(lambda: ks.fused_sample_bv(logits, gumbel, **kw))
-        plain_ms = time_ms(lambda: ks.fused_sample_plain(logits, gumbel,
-                                                         **kw), n=5)
+        # a launch takes the host about as long as the card: the
+        # profiler's device time is the kernel's, the events' the host's
+        event_ms = time_ms(lambda: ks.fused_sample_bv(logits, gumbel, **kw))
+        ms = device_ms(lambda: ks.fused_sample_bv(logits, gumbel, **kw))
+        plain_ms = device_ms(lambda: ks.fused_sample_plain(logits, gumbel,
+                                                           **kw), n=5)
         nbytes = B * V * 4 * (2 if temp > 0 else 1) + B * 8
         # ~10 f32 operations per vocab entry: mask, max, exp, sum, scale,
         # compare, noise add, argmax
@@ -310,8 +315,8 @@ def check_fused_sample(results: dict, V: int = 65536, vocab: int = 64000,
         log(f"kernels: fused_sample {arch} B={B} V={V} vocab={vocab} "
             f"T={temp} top_k={k} "
             f"top_p={p} tokens equal, max|lp err|={err:.3g} (tol {tol}) "
-            f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-            f"bound={bms:.5f} ms ({by})")
+            f"kernel={ms:.4f} ms device ({event_ms:.4f} between events) "
+            f"plain={plain_ms:.4f} ms device bound={bms:.5f} ms ({by})")
         if temp > 0 and arch == "yi-9b":  # the JSON entry
             results["fused_sample"] = dict(
                 name="fused_sample_bv", route="cuda",
@@ -810,11 +815,13 @@ def check_ssd_scan(results: dict) -> None:
                 continue
             with torch.no_grad():
                 ms = time_ms(lambda: ops.ssd_scan(*args, chunk))
+                dev_ms = device_ms(lambda: ops.ssd_scan(*args, chunk))
                 plain_ms = time_ms(lambda: ssd_plain(*args, chunk), n=5)
             (fb, fo), (bb, bo) = ssd_work(B, L, heads, chunk, dtype)
             fwd_bound, fwd_by = bound_ms(fb, fo, name)
-            line += (f"; fwd kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-                     f"bound={fwd_bound:.4f} ms ({fwd_by}); library: none")
+            line += (f"; fwd kernel={ms:.4f} ms ({dev_ms:.4f} device) "
+                     f"plain={plain_ms:.4f} ms bound={fwd_bound:.4f} ms "
+                     f"({fwd_by}); library: none")
             if dtype == torch.bfloat16:  # the recompute's shape and type
                 log(line)
                 if arch == "mamba2-370m":
@@ -1284,8 +1291,10 @@ FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
 # launch: one kernel name holds all of its time
 DECODE_KERNELS = ("paged_attention_kernel", "fused_sample_kernel")
 SSM_DECODE_KERNELS = ("ssm_update_kernel", "fused_sample_kernel")
-SSD_KERNELS = ("ssd_fwd_kernel", "ssd_bwd_state_kernel",
-               "ssd_bwd_chunk_kernel")
+# K6's bf16 forward (the recompute's) first, then its f32 forward and
+# backward (the train step's)
+SSD_KERNELS = ("ssd_fwd_mma_kernel", "ssd_fwd_tf32_kernel",
+               "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel")
 
 
 def slot_row_bytes(layout) -> int:

@@ -66,6 +66,15 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr)
       : "memory");
 }
+// four 8 x 8 b16 matrices as stored; lanes 8i .. 8i+7 give the row
+// addresses of matrix i, register i receives it
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
 // two matrices from the addresses of lanes 0-15
 __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
                                         uint32_t addr) {
@@ -90,6 +99,24 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the two f32 of a packed bf16 pair (lo half first)
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// f32 pair (a, b) as two bf16 pairs hi + lo, hi the rounding of (a, b) and
+// lo the rounding of what hi leaves: a ~ bf16_lo(hi) + bf16_lo(lo) to 16
+// significant bits, so one product with an exact bf16 operand becomes two
+// mma.sync products with an error of ~2^-17 of each term
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - bf16_lo(hi), b - bf16_hi(hi));
 }
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {

@@ -8,10 +8,14 @@ in-chunk prefix sum, the running (P, N) state carried across chunks:
   state = exp(a_sum) · state + Σ_s exp(a_sum - a_cum_s) dt_s x_s ⊗ B_s
 
 The forward kernel is ``csrc/ssd_scan.cu`` and replaces ``ssd_scan_bhcsp``
-of the JAX package's ``kernels/ssd_scan.py``; the backward kernels are
-``csrc/ssd_scan_bwd.cu`` (the JAX package has none: it trains through
-``ssd_chunked``, which XLA differentiates).  :class:`SSDScan` ties the two
-into autograd.
+of the JAX package's ``kernels/ssd_scan.py``: one block per (batch row,
+head, chunk), the chunks of a row in thread-block clusters that pass the
+carried state on in distributed shared memory, the products on the
+tensor cores (bf16 with f32 operands as bf16 hi/lo pairs; f32 in
+3xTF32).  The backward kernels are ``csrc/ssd_scan_bwd.cu`` (the JAX
+package has none: it trains through ``ssd_chunked``, which XLA
+differentiates) and read the forward's chunk-start states.
+:class:`SSDScan` ties the two into autograd.
 
 Layouts (the TPU kernel's):
   x, y   (B, H, nc, s, P)  bf16 or f32, y in x's type
@@ -24,7 +28,8 @@ merge into one sequence axis, with a unit last stride (the model's
 and N <= 128.
 
 Launch counters: ``ssd_scan_bhcsp.launches`` and ``ssd_scan_bwd.launches``
-(one each per call; the backward's call is two kernel launches).
+(one each per call; the forward's call is one cluster launch, the
+backward's two kernel launches).
 """
 from __future__ import annotations
 

@@ -142,7 +142,8 @@ def _sampling_inputs(seed, B, V, dev):
     return logits.to(dev), noise.to(dev)
 
 
-@pytest.mark.parametrize("B,V", [(1, 64), (4, 128), (3, 250), (8, 65536)])
+@pytest.mark.parametrize("B,V", [(1, 64), (4, 128), (3, 250), (8, 65536),
+                                 (8, 51200), (8, 32768)])
 @pytest.mark.parametrize("temperature,top_k,top_p,vocab_size", [
     (0.0, 0, 1.0, 0),     # greedy
     (1.0, 0, 1.0, 0),     # plain categorical
@@ -167,25 +168,112 @@ def test_fused_sample_kernel_matches_plain(dev, B, V, temperature, top_k,
     torch.testing.assert_close(lp, want_lp, atol=tol, rtol=tol)
 
 
-def test_fused_sample_kernel_ties_and_duplicates(dev):
-    V = 96
-    logits = torch.zeros((3, V))
-    logits[0, 7] = logits[0, 20] = 3.0           # greedy tie: first wins
-    logits[1, [3, 9, 30, 31]] = 2.0              # duplicates at the k edge
-    logits[1, 50] = 5.0
-    logits[2, :] = torch.linspace(-1, 1, V)
-    logits[2, 60:64] = 4.0
-    noise = torch.zeros_like(logits)
-    logits, noise = logits.to(dev), noise.to(dev)
-    for kw in (dict(temperature=0.0), dict(temperature=1.0, top_k=3),
-               dict(temperature=1.0, top_k=5, top_p=0.5),
-               dict(temperature=0.5, top_p=0.3)):
+SAMPLING_CASES = ["first_index_ties", "ties_straddle_kth", "max_duplicates",
+                  "dyadic_mass_hits_p", "all_equal", "top_k_at_least_V_or_1",
+                  "fewer_valid_than_k", "top_p_without_top_k"]
+
+
+def adversarial_sampling_rows(case):
+    """(logits, gumbel, [(filter kwargs, {row: token} or None)]) of one
+    adversarial case of the fused sampler (K2), numpy f32 (B 4, V 64)."""
+    rng = np.random.default_rng(len(case))
+    V = 64
+    logits = np.zeros((4, V), np.float32)
+    gumbel = rng.gumbel(size=(4, V)).astype(np.float32)
+    if case == "first_index_ties":
+        # ties go to the first index in every reduction; duplicates at the
+        # top-k edge count once per occurrence; the top-p cutoff is kept
+        logits[0, [7, 20]] = 3.0                 # greedy / Gumbel-max tie
+        logits[1, [3, 9, 30, 31]] = 2.0          # four duplicates at the k edge
+        logits[1, 50] = 5.0
+        logits[2] = np.linspace(-1, 1, V)
+        logits[2, 60:64] = 4.0                   # duplicates in the nucleus
+        logits[3, 1] = 6.0                       # one token holds the mass
+        gumbel[:] = 0.0
+        want = {0: 7, 3: 1}
+        return logits, gumbel, [
+            (dict(temperature=0.0), want),
+            (dict(temperature=1.0, top_k=3), want),
+            (dict(temperature=1.0, top_k=5, top_p=0.5), want),
+            (dict(temperature=0.5, top_p=0.3), want),
+            (dict(temperature=1.0, top_p=1e-6, vocab_size=40), want)]
+    if case == "ties_straddle_kth":
+        # the k-th value has duplicates on both sides of k: all are kept
+        logits[:] = rng.standard_normal((4, V)) - 10.0
+        logits[:, [2, 11, 40, 41, 63]] = 1.0
+        logits[:, 5] = 4.0
+        gumbel[:, [41, 63]] += 30.0
+        gumbel[:, 11] += 60.0  # a kept duplicate past k wins
+        return logits, gumbel, [
+            (dict(temperature=1.0, top_k=k, top_p=p), {r: 11 for r in range(4)})
+            for k in (2, 3, 4, 6) for p in (1.0, 0.99)]
+    if case == "max_duplicates":
+        logits[:] = rng.standard_normal((4, V))
+        logits[:, [9, 17, 33]] = 8.0
+        gumbel[:, 33] += 30.0
+        return logits, gumbel, [
+            (dict(temperature=0.0), {r: 9 for r in range(4)}),
+            (dict(temperature=1.0, top_k=1), {r: 33 for r in range(4)}),
+            (dict(temperature=0.7, top_p=0.05), {r: 33 for r in range(4)})]
+    if case == "dyadic_mass_hits_p":
+        # masses exp(x - max) are exactly 1 (x = 0, -1e-30, -2e-30), so the
+        # prefix masses 2/8, 4/8, 8/8 hit p exactly: a prefix reaching p
+        # keeps its last token and nothing after it
+        logits[:, 0:2] = 0.0
+        logits[:, 2:4] = -1e-30
+        logits[:, 4:8] = -2e-30
+        gumbel[:] = 0.0
+        gumbel[:, 3] = 5.0
+        gumbel[:, 5] = 10.0
+        kw = dict(temperature=1.0, vocab_size=8)
+        return logits, gumbel, [
+            (dict(kw, top_p=0.25), {r: 0 for r in range(4)}),
+            (dict(kw, top_p=0.5), {r: 3 for r in range(4)}),
+            (dict(kw, top_p=0.75), {r: 5 for r in range(4)}),
+            (dict(kw, top_p=0.5, top_k=6, temperature=0.5),
+             {r: 3 for r in range(4)})]
+    if case == "all_equal":
+        want = {r: int(np.argmax(gumbel[r])) for r in range(4)}
+        return logits, gumbel, [
+            (dict(temperature=0.0), {r: 0 for r in range(4)}),
+            (dict(temperature=1.0, top_k=5), want),
+            (dict(temperature=1.0, top_p=0.5), want),
+            (dict(temperature=1.0, top_k=1, top_p=0.1), want)]
+    if case == "top_k_at_least_V_or_1":
+        logits[:] = 4.0 * rng.standard_normal((4, V))
+        top = {r: int(np.argmax(logits[r])) for r in range(4)}
+        return logits, gumbel, [
+            (dict(temperature=1.0, top_k=V), None),
+            (dict(temperature=1.0, top_k=V + 5, top_p=0.9), None),
+            (dict(temperature=1.0, top_k=1), top),
+            (dict(temperature=0.6, top_k=1, top_p=0.5), top)]
+    if case == "fewer_valid_than_k":
+        logits[:] = rng.standard_normal((4, V))
+        return logits, gumbel, [
+            (dict(temperature=t, top_k=20, top_p=p, vocab_size=5), None)
+            for t in (0.8, 1.3) for p in (1.0, 0.9)]
+    assert case == "top_p_without_top_k"
+    logits[:] = 4.0 * rng.standard_normal((4, V))
+    return logits, gumbel, [(dict(temperature=t, top_p=p), None)
+                            for t, p in ((1.0, 0.3), (0.7, 0.9),
+                                         (1.0, 1e-6))]
+
+
+@pytest.mark.parametrize("case", SAMPLING_CASES)
+def test_fused_sample_kernel_ties_and_duplicates(dev, case):
+    """The adversarial rows (ties at the k-th value, duplicated maxima,
+    prefix masses that hit p exactly, ...): the kernel's tokens are the
+    plain version's and the expected ones; logprobs agree."""
+    logits, noise, runs = adversarial_sampling_rows(case)
+    logits, noise = torch.from_numpy(logits).to(dev), torch.from_numpy(
+        noise).to(dev)
+    for kw, want in runs:
         tok, lp = ks.fused_sample_bv(logits, noise, **kw)
         want_tok, want_lp = ks.fused_sample_plain(logits, noise, **kw)
-        assert torch.equal(tok, want_tok), kw
+        assert torch.equal(tok, want_tok), (case, kw)
         torch.testing.assert_close(lp, want_lp, atol=2e-5, rtol=2e-5)
-    tok, _ = ks.fused_sample_bv(logits, noise, temperature=0.0)
-    assert tok.tolist()[0] == 7
+        for r, t in (want or {}).items():
+            assert tok[r].item() == t, (case, kw, r)
 
 
 def test_request_noise_same_bits_on_card_and_cpu(dev):
@@ -634,6 +722,9 @@ SSD_CASES = [  # B, L, H, P, N, chunk
     (2, 300, 4, 64, 128, 128),    # padded to 384
     (2, 1024, 32, 64, 128, 128),  # mamba2-370m train microbatch
     (2, 1024, 80, 64, 64, 128),   # zamba2-2.7b train microbatch
+    (16, 512, 32, 64, 128, 128),  # mamba2-370m recompute
+    (16, 512, 80, 64, 64, 128),   # zamba2-2.7b recompute
+    (2, 2048, 4, 64, 128, 128),   # 16 chunks: two windows of a cluster
 ]
 
 
@@ -713,6 +804,62 @@ def test_ssd_scan_kernel_in_the_tpu_layout(dev):
     got = ssd.ssd_scan_bhcsp(x, dt, A, Bm, Cm, D)
     assert _rel(got, ssd.ssd_scan_plain(x, dt, A, Bm, Cm, D)) <= 1e-4
     assert _rel(got, ref.ssd_scan_ref(x, dt, A, Bm, Cm, D)) <= 1e-3
+
+
+def _plain_chunk_states(x, dt, A, Bm, Cm, chunk):
+    """The state at the start of every chunk, (B, H, nc, P, N) f32, by the
+    plain recurrence state <- exp(a_sum) state + sum_j exp(a_sum - a_cum_j)
+    dt_j x_j (x) B_j from zeros, in the model layout."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = L // chunk
+    xf = x.float().reshape(B, nc, chunk, H, P).permute(0, 3, 1, 2, 4)
+    dtf = dt.reshape(B, nc, chunk, H).permute(0, 3, 1, 2)
+    Bf = Bm.float().reshape(B, nc, chunk, N)
+    a_cum = torch.cumsum((dtf * A[None, :, None, None]).double(), -1).float()
+    w = torch.exp(a_cum[..., -1:] - a_cum) * dtf
+    contrib = (xf * w[..., None]).transpose(-1, -2) @ Bf[:, None]
+    decay = torch.exp(a_cum[..., -1])
+    state = torch.zeros((B, H, P, N), device=x.device)
+    out = []
+    for c in range(nc):
+        out.append(state)
+        state = state * decay[:, :, c, None, None] + contrib[:, :, c]
+    return torch.stack(out, dim=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (2, 1024, 32, 64, 128, 128), (2, 1024, 80, 64, 64, 128),
+    (2, 2048, 4, 64, 128, 128), (1, 256, 3, 32, 16, 32)])
+def test_ssd_scan_saved_states_match_plain_recurrence(dev, B, L, H, P, N,
+                                                      chunk, dtype):
+    """The forward's chunk-start states (what the backward consumes) are
+    the plain recurrence's, relative to the largest |state|: f32 sums in
+    another order, and in bf16 products whose f32 operand goes in as a
+    bf16 hi/lo pair (~2^-16 of each term)."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(L + H, B, L, H, P, N, dtype, dev)
+    nc = L // chunk
+    _, states = ssd.ssd_scan_bhcsp(
+        x.reshape(B, nc, chunk, H, P).permute(0, 3, 1, 2, 4),
+        dt.reshape(B, nc, chunk, H).permute(0, 3, 1, 2), A.expand(B, H),
+        Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N),
+        D.expand(B, H), save_states=True)
+    want = _plain_chunk_states(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert states.shape == (B, H, nc, P, N) and states.dtype == torch.float32
+    assert torch.equal(states[:, :, 0], torch.zeros_like(states[:, :, 0]))
+    assert _rel(states, want) <= SSD_RTOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_is_repeatable_bitwise(dev, dtype):
+    """No atomics: two forwards (two windows of the chunk cluster) give the
+    same bits."""
+    args = _ssd_inputs(9, 2, 2048, 8, 64, 128, dtype, dev)
+    first = ops.ssd_scan(*args, 128)
+    for _ in range(2):
+        assert torch.equal(ops.ssd_scan(*args, 128), first)
 
 
 SSU_CASES = [  # B, H, P, N

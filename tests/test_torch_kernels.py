@@ -14,6 +14,9 @@ from repro.serve import sampling as jserve_sampling
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.serve import sampling as serve_sampling
+# the adversarial K2 rows, shared with the card tests (that file imports
+# no JAX, so the card's machine can run it)
+from test_torch_cuda import SAMPLING_CASES, adversarial_sampling_rows
 
 # one intra-op thread: the test workers share the host's cores, and more
 # threads in each oversubscribe them (the port's files take ~78 s under
@@ -196,25 +199,19 @@ def test_fused_sample_plain_matches_jax(B, V, temperature, top_k, top_p,
         assert (tok < vocab_size).all()
 
 
-def test_fused_sample_ties_and_duplicates_match_jax():
-    """Ties go to the first index in every reduction; duplicates at the
-    top-k edge count once per occurrence; the top-p cutoff is kept."""
-    V = 64
-    logits = np.zeros((4, V), np.float32)
-    logits[0, [7, 20]] = 3.0                 # greedy / Gumbel-max tie
-    logits[1, [3, 9, 30, 31]] = 2.0          # four duplicates at the k edge
-    logits[1, 50] = 5.0
-    logits[2] = np.linspace(-1, 1, V)
-    logits[2, 60:64] = 4.0                   # duplicates in the nucleus
-    logits[3, 1] = 6.0                       # one token holds the mass
-    gumbel = np.zeros_like(logits)
-    for kw in (dict(temperature=0.0), dict(temperature=1.0, top_k=3),
-               dict(temperature=1.0, top_k=5, top_p=0.5),
-               dict(temperature=0.5, top_p=0.3),
-               dict(temperature=1.0, top_p=1e-6, vocab_size=40)):
+@pytest.mark.parametrize("case", SAMPLING_CASES)
+def test_fused_sample_ties_and_duplicates_match_jax(case):
+    """Adversarial rows: the plain version (the kernel's radix
+    formulation) draws JAX's token (Pallas kernel in interpret mode and
+    the sort-based oracle) in every case, and the expected one where the
+    case fixes it."""
+    logits, gumbel, runs = adversarial_sampling_rows(case)
+    for kw, want in runs:
         tok = _check_sample(logits, gumbel, **kw)
-        assert tok[0] == 7
-        assert tok[3] == 1
+        if "vocab_size" in kw:
+            assert (tok < kw["vocab_size"]).all()
+        for r, t in (want or {}).items():
+            assert tok[r] == t, (case, kw, r, tok[r], t)
 
 
 @pytest.mark.parametrize("temperature,top_k,top_p", [

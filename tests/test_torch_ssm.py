@@ -206,6 +206,88 @@ def test_ssd_scan_plain_matches_pallas_and_oracle(B, H, P, N, L, chunk,
     _close(y, got.permute(0, 2, 3, 1, 4).reshape(B, L, H, P), 1e-6)
 
 
+def _hi_lo(a: torch.Tensor):
+    """f32 -> (hi, lo) bf16 values as f32: hi the rounding of a, lo the
+    rounding of what hi leaves (the kernel's split_bf16)."""
+    hi = a.bfloat16().float()
+    return hi, (a - hi).bfloat16().float()
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a fed as a bf16 hi/lo pair, b as given: two products
+    summed in f32, as the bf16 kernel's mma.sync pairs do."""
+    hi, lo = _hi_lo(a)
+    return hi @ b + lo @ b
+
+
+def _ssd_kernel_order(x, dt, A, Bm, Cm, D, *, split: bool,
+                      cluster: int = 8):
+    """K6's forward in the card kernel's order of work, TPU layout in and
+    out (csrc/ssd_scan.cu): every chunk's in-chunk term W x (W = C B^T (.)
+    L (.) dt) and local state (w (.) x)^T B at once, then the carried state
+    by the chain carried <- carried * exp(a_sum) + local over windows of
+    ``cluster`` chunks in chunk order (each step rounded twice, the running
+    state carried from one window to the next), then exp(a_cum) (.) C
+    carried^T, y = W x + that + D x.  With ``split`` (the bf16 kernel),
+    the operand computed in f32 of each product (W, w (.) x, the carried
+    state) goes in as a bf16 hi/lo pair."""
+    B, H, nc, s, P = x.shape
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    a_cum = torch.cumsum((dtf * A.float()[..., None, None]).double(),
+                         dim=-1).float()
+    tri = torch.ones((s, s), dtype=torch.bool).tril()
+    L = torch.exp(torch.where(tri, a_cum[..., :, None] - a_cum[..., None, :],
+                              -1e30))
+    W = (Cf @ Bf.transpose(-1, -2))[:, None] * L * dtf[..., None, :]
+    xw = xf * (torch.exp(a_cum[..., -1:] - a_cum) * dtf)[..., None]
+    if split:
+        wx = _split_product(W, xf)
+        local = _split_product(xw.transpose(-1, -2), Bf[:, None])
+    else:
+        wx = W @ xf
+        local = xw.transpose(-1, -2) @ Bf[:, None]
+    decay = torch.exp(a_cum[..., -1])
+    carried = torch.empty_like(local)
+    run = torch.zeros_like(local[:, :, 0])
+    for w0 in range(0, nc, cluster):  # the windows, one cluster each
+        for c in range(w0, min(nc, w0 + cluster)):
+            carried[:, :, c] = run
+            run = run * decay[:, :, c, None, None] + local[:, :, c]
+    cT = carried.transpose(-1, -2)  # (P, N) -> (N, P)
+    if split:
+        hi, lo = _hi_lo(cT)
+        off = Cf[:, None] @ hi + Cf[:, None] @ lo
+    else:
+        off = Cf[:, None] @ cT
+    y = wx + torch.exp(a_cum)[..., None] * off + D.float()[..., None, None,
+                                                           None] * xf
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,P,N", [(MAMBA, 64, 128), (ZAMBA, 64, 64)])
+def test_ssd_kernel_order_matches_pallas(arch, P, N, dtype):
+    """The card kernel's order of work (local states, the chain over two
+    windows of the chunk cluster, the bf16 hi/lo operand split) at the
+    models' head shapes, L cut to 10 chunks of 16, against the Pallas
+    kernel in interpret mode."""
+    B, H, chunk, L = 2, 2, 16, 160
+    x, dt, A, Bm, Cm, D = _ssd_np(P + N, B, L, H, P, N, model_decay=True)
+    k = [np.array(a) for a in _to_kernel_layout(x, dt, A, Bm, Cm, D, chunk)]
+    jin = [jnp.asarray(a, JDT[dtype]) if i in (0, 3, 4) else jnp.asarray(a)
+           for i, a in enumerate(k)]
+    tin = [torch.from_numpy(a).to(TDT[dtype]) if i in (0, 3, 4)
+           else torch.from_numpy(a) for i, a in enumerate(k)]
+    got = _ssd_kernel_order(*tin, split=dtype == "bfloat16")
+    assert got.dtype == TDT[dtype] and got.shape == tin[0].shape
+    want = jax.jit(lambda *a: jssd.ssd_scan_bhcsp(*a, interpret=True))(*jin)
+    _close(got, want, SSD_REL[dtype])
+    # the chain's start states are the plain version's recurrence
+    _close(_ssd_kernel_order(*(t.float() for t in tin), split=False),
+           tssd.ssd_scan_plain(*(t.float() for t in tin)), SSD_REL["float32"])
+
+
 @pytest.mark.parametrize("L,chunk,model_decay", [(64, 16, False),
                                                  (96, 32, True)])
 def test_ssd_scan_grads_match_jax_ssd_chunked(L, chunk, model_decay):
