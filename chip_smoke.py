@@ -8,10 +8,10 @@ Run from the repository root with no arguments:
 Phases, one line of output each (more for the kernels):
   1. header     the card's name and power limit, the kernel build time,
                 every kernel's registers and spills, that the bf16
-                kernels of K3's forward and K4 and both K6 forwards run
-                their products on the tensor cores (HGMMA, HMMA in every
-                instance's SASS), and that they and K3's backward spill
-                nothing;
+                kernels of K3's forward and K4, both K6 forwards and
+                K6's backward run their products on the tensor cores
+                (HGMMA, HMMA in every instance's SASS), and that they and
+                K3's backward spill nothing;
   2. kernels    each hand-written kernel against its plain PyTorch version
                 at the four models' shapes, with CUDA-event timings (the
                 profiler's device time for the kernels that run shorter
@@ -72,9 +72,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by input type
+# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by input type;
+# "3xtf32" is f32 products on the tensor cores as three TF32 products each
+# (495 TFLOP/s of TF32 work), the rate of K6's f32 kernels
 MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 SEED = 0
 
 
@@ -110,18 +112,18 @@ def time_ms(fn, reps: int = 5, n: int = 20) -> float:
     return statistics.median(means)
 
 
-def device_ms(fn, n: int = 20) -> float:
+def device_ms(fn, n: int = 20, key: str = "") -> float:
     """Device time of one call of ``fn``: the sum over its CUDA kernels
-    under ``torch.profiler``, the mean of ``n`` calls after a warm-up.  A
-    profile now and then comes back without device events; it is taken
-    again, three times at most."""
+    (those whose name holds ``key``) under ``torch.profiler``, the mean of
+    ``n`` calls after a warm-up.  A profile now and then comes back
+    without device events; it is taken again, three times at most."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        ms = sum(t for _, t, _ in profiled(fn, n)) * 1e3
+        ms = sum(t for k, t, _ in profiled(fn, n) if key in k) * 1e3
         if ms > 0:
             return ms
     raise RuntimeError("the profiler saw no device time in three profiles")
@@ -136,24 +138,28 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
 
 # the kernels whose products run on the tensor cores, and the SASS
 # instruction of their products: K3's bf16 forward (wgmma), K4's bf16 (also
-# inside K5) and K6's forward in bf16 and in f32 (3xTF32), all mma.sync
+# inside K5), K6's forward in bf16 and in f32 (3xTF32) and K6's backward
+# (3xTF32, both instances), all mma.sync
 TC_KERNELS = {"flash_fwd_wgmma_kernel": "HGMMA", "gmm_mma_kernel": "HMMA",
-              "ssd_fwd_mma_kernel": "HMMA", "ssd_fwd_tf32_kernel": "HMMA"}
+              "ssd_fwd_mma_kernel": "HMMA", "ssd_fwd_tf32_kernel": "HMMA",
+              "ssd_bwd_tf32_kernel": "HMMA"}
 # kernels that must spill nothing: those, and K3's backward products, whose
 # accumulators live in registers
 NO_SPILL = (*TC_KERNELS, "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_fwd_wgmma_kernel<128>`` from an Itanium-mangled kernel
-    name."""
+    """``flash_fwd_wgmma_kernel<128>`` or ``ssd_bwd_tf32_kernel<bf16>``
+    from an Itanium-mangled kernel name."""
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
     for m in re.finditer(r"(?=(\d+))", mangled):  # every digit run's tails
         end = m.start() + len(m.group(1))
         ident = mangled[end:end + int(m.group(1))]
         if ident.endswith("_kernel") and ident.isidentifier():
             rest = mangled[end + len(ident):]
-            args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) \
-                if rest.startswith("I") else []
+            head = rest[1:].split("EEv")[0] if rest.startswith("I") else ""
+            args = re.findall(r"L[ib](\d+)E", head) or (
+                [types[head]] if head in types else [])
             return ident + (f"<{','.join(args)}>" if args else "")
     return mangled
 
@@ -818,10 +824,15 @@ def check_ssd_scan(results: dict) -> None:
                 dev_ms = device_ms(lambda: ops.ssd_scan(*args, chunk))
                 plain_ms = time_ms(lambda: ssd_plain(*args, chunk), n=5)
             (fb, fo), (bb, bo) = ssd_work(B, L, heads, chunk, dtype)
-            fwd_bound, fwd_by = bound_ms(fb, fo, name)
+            # f32 runs in 3xTF32 on the tensor cores: bound at that rate,
+            # the CUDA cores' f32 rate beside it
+            rate = "3xtf32" if dtype == torch.float32 else name
+            fwd_bound, fwd_by = bound_ms(fb, fo, rate)
+            cuda_cores = (f", {bound_ms(fb, fo, name)[0]:.4f} ms at the CUDA "
+                          "cores' f32 rate" if rate != name else "")
             line += (f"; fwd kernel={ms:.4f} ms ({dev_ms:.4f} device) "
                      f"plain={plain_ms:.4f} ms bound={fwd_bound:.4f} ms "
-                     f"({fwd_by}); library: none")
+                     f"({fwd_by}, {rate}{cuda_cores}); library: none")
             if dtype == torch.bfloat16:  # the recompute's shape and type
                 log(line)
                 if arch == "mamba2-370m":
@@ -852,24 +863,30 @@ def check_ssd_scan(results: dict) -> None:
             gerr = max((a - b).abs().max().item()
                        for a, b in zip(grads[0][2], grads[1][2]))
             (ky, kl, _), (py, pl, _) = grads
-            bwd_ms = time_ms(lambda: torch.autograd.grad(ky, kl, dy,
-                                                         retain_graph=True))
+            # the kernel alone, and the whole call (the head sums of the
+            # dB, dC, dA, dD partials and the layout changes around it)
+            def bwd():
+                return torch.autograd.grad(ky, kl, dy, retain_graph=True)
+            bwd_ms = time_ms(bwd)
+            bwd_dev, bwd_call = device_ms(bwd, key="ssd_bwd"), device_ms(bwd)
             plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
                 py, pl, dy, retain_graph=True), n=5)
-            bwd_bound, bwd_by = bound_ms(bb, bo, name)
+            bwd_bound, bwd_by = bound_ms(bb, bo, "3xtf32")
             log(f"{line}; bwd max|err|/max|grad| "
                 + " ".join(f"d{n} {r:.3g}" for n, r in
                            zip(("x", "dt", "A", "Bm", "Cm", "D"), rels))
-                + f" (tol {tol}); bwd kernel={bwd_ms:.4f} ms plain="
-                f"{plain_bwd_ms:.4f} ms bound={bwd_bound:.4f} ms ({bwd_by}); "
-                f"library: none")
+                + f" (tol {tol}); bwd kernel={bwd_ms:.4f} ms ({bwd_dev:.4f} "
+                f"device, the call {bwd_call:.4f}) plain={plain_bwd_ms:.4f} "
+                f"ms bound={bwd_bound:.4f} ms ({bwd_by}, 3xtf32, "
+                f"{bound_ms(bb, bo, name)[0]:.4f} ms at the CUDA cores' f32 "
+                f"rate); library: none")
             if arch == "mamba2-370m":
                 results["ssd_scan_bwd"] = dict(
                     common, name="ssd_scan_bwd",
                     source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                     max_abs_err=gerr, ms=bwd_ms, plain_ms=plain_bwd_ms,
                     bound_ms=bwd_bound, bound_by=bwd_by)
-            del grads, ky, kl, py, pl
+            del grads, ky, kl, py, pl, bwd
             torch.cuda.empty_cache()
 
 
@@ -1294,7 +1311,7 @@ SSM_DECODE_KERNELS = ("ssm_update_kernel", "fused_sample_kernel")
 # K6's bf16 forward (the recompute's) first, then its f32 forward and
 # backward (the train step's)
 SSD_KERNELS = ("ssd_fwd_mma_kernel", "ssd_fwd_tf32_kernel",
-               "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel")
+               "ssd_bwd_tf32_kernel")
 
 
 def slot_row_bytes(layout) -> int:

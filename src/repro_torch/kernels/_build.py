@@ -58,8 +58,8 @@ SIGNATURES = {
     # x, dt, A, Bm, Cm, D, y, states, strides[23], B, H, L, P, N, s, bf16,
     # stream
     "ssd_scan_fwd_launch": [_P] * 8 + [_STRIDES] + [_I] * 7 + [_P],
-    # x, dt, A, Bm, Cm, D, dy, states, dsend, dx, ddt, dbp, dcp, dap, ddp,
-    # strides[23], B, H, L, P, N, s, bf16, stream
+    # x, dt, A, Bm, Cm, D, dy, states, dsend (unused), dx, ddt, dbp, dcp,
+    # dap, ddp, strides[23], B, H, L, P, N, s, bf16, stream
     "ssd_scan_bwd_launch": [_P] * 15 + [_STRIDES] + [_I] * 7 + [_P],
 }
 

@@ -1,7 +1,9 @@
-// Tensor-core building blocks of the bf16 kernels: asynchronous and
-// element-wise 16-byte copies into swizzled shared-memory tiles (both
-// kernels), ldmatrix and the warp-level mma.sync.m16n8k16 product with bf16
-// inputs and f32 sums (moe_gmm.cu), bf16 packing of f32 pairs (both).
+// Tensor-core building blocks: asynchronous and element-wise 16-byte
+// copies into swizzled shared-memory tiles, ldmatrix and the warp-level
+// mma.sync.m16n8k16 product with bf16 inputs and f32 sums (moe_gmm.cu,
+// ssd_scan.cu), bf16 packing of f32 pairs, and the 3xTF32 product
+// (mma.sync.m16n8k8 with f32 operands as TF32 hi/lo pairs) of the SSD
+// scan's f32 kernels (ssd_scan.cu, ssd_scan_bwd.cu).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4), each
 // register holding two adjacent bf16 (or two f32 for C):
@@ -149,6 +151,58 @@ __device__ __forceinline__ void stage16(uint32_t dst,
     load8_scalar(v, src, in ? min(8, n) : 0);
     st_shared16(dst, v);
   }
+}
+
+// TF32 operands of mma.m16n8k8: each f32 operand as hi + lo, hi the TF32
+// rounding and lo that of what hi leaves (22 significant bits together);
+// a product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms
+// first), ~2^-21 of |a b|, as close as f32 FMAs summed in another order.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+}
+
+struct Tf32 {  // a fragment as hi and lo parts
+  uint32_t h, l;
+};
+
+__device__ __forceinline__ Tf32 tf32(float a) {
+  Tf32 v;
+  split_tf32(a, v.h, v.l);
+  return v;
+}
+
+// The same pair in two integer operations and a subtraction, for kernels
+// whose issue slots bound them: hi is a rounded to TF32 half away from
+// zero (0x1000 added, the low 13 bits cleared), lo = a - hi is
+// passed whole, and mma.sync reads a .tf32 operand's top 19 bits, so lo is
+// truncated to TF32 (the "big + small" split of CUTLASS's fast 3xTF32):
+// a product keeps ~2^-20 of |a b| (the rounded split of tf32(), ~2^-21).
+__device__ __forceinline__ Tf32 tf32_fast(float a) {
+  Tf32 v;
+  v.h = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  v.l = __float_as_uint(a - __uint_as_float(v.h));
+  return v;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: A (16 x 8) as a[4], B (8 x 8) as b[2]
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Tf32 (&a)[4],
+                                           const Tf32 (&b)[2]) {
+  mma_tf32(c, a[0].l, a[1].l, a[2].l, a[3].l, b[0].h, b[1].h);
+  mma_tf32(c, a[0].h, a[1].h, a[2].h, a[3].h, b[0].l, b[1].l);
+  mma_tf32(c, a[0].h, a[1].h, a[2].h, a[3].h, b[0].h, b[1].h);
 }
 
 }  // namespace mma

@@ -1,11 +1,13 @@
 // Shared pieces of the SSD chunked-scan kernels (ssd_scan.cu forward,
 // ssd_scan_bwd.cu backward): type conversions, the strides of the
-// tensors, the shared-memory row pitches and the in-chunk prefix sum of
-// the log-decay.
+// tensors, the chunk's staging of dt and its in-chunk prefix sum of the
+// log-decay, and the per-row decays.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_common.cuh"
 
 namespace ssd {
 
@@ -13,9 +15,10 @@ constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kMaxS = 128;     // chunk length
 constexpr int kMaxP = 64;      // head dim
 constexpr int kMaxN = 128;     // state size
-constexpr int kJB = 32;        // key columns per block of the (s, s) matrix
-constexpr int kWPitch = kJB + 1;
+constexpr int kMaxCluster = 8;  // chunks of a row in one cluster
 constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -64,13 +67,6 @@ __device__ __forceinline__ void chunk_cumsum(const float* dts, float A,
   }
 }
 
-// sum over the 16 lanes of a half-warp (one row of a 16 x 16 thread tile)
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 // sum over the block in a fixed order (warp shuffles, then warp 0 over the
 // eight warp totals); every thread gets the result.  red: 32 floats.
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -83,16 +79,47 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// rows [r0, r0 + n) of a (rows, width) slab with row stride `ld` (unit
-// column stride) into dst with row pitch `pitch`, as f32
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, long long ld,
-                                      int n, int width, float* dst,
-                                      int pitch) {
-  for (int idx = threadIdx.x; idx < n * width; idx += kThreads) {
-    const int r = idx / width, c = idx - r * width;
-    dst[r * pitch + c] = to_f32(src[r * ld + c]);
+// 4 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   mma::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Warp 0 starts the copy of the chunk's dt (strided) into dts as its own
+// group of asynchronous copies; the caller then starts the tiles' copies.
+__device__ __forceinline__ void chunk_dt_start(const float* __restrict__ dtb,
+                                               long long ld, float* dts,
+                                               int s) {
+  if (threadIdx.x >= 32) return;
+  for (int i = threadIdx.x; i < s; i += 32) cp_async4(dts + i, dtb + i * ld);
+  mma::cp_async_commit();
+}
+
+// Warp 0 waits for dt alone (the tiles' group may still be in flight) and
+// thread 0 takes its prefix sum into acum; the caller synchronises after.
+__device__ __forceinline__ void chunk_dt_sum(float Av, const float* dts,
+                                             float* acum, int s) {
+  if (threadIdx.x >= 32) return;
+  mma::cp_async_wait<1>();
+  __syncwarp();
+  chunk_cumsum(dts, Av, acum, s);
+}
+
+// per row: exp(a_cum), the weight exp(a_sum - a_cum) dt of x in the local
+// state, and the chunk's decay exp(a_sum); rows s .. rows - 1 get zeros
+__device__ __forceinline__ void chunk_rows(const float* dts, float* acum,
+                                           float* ecum, float* wv,
+                                           float* decay_s, int s, int rows) {
+  const float alast = acum[s - 1];
+  for (int i = threadIdx.x; i < rows; i += kThreads) {
+    const bool in = i < s;
+    if (!in) acum[i] = 0.f;
+    ecum[i] = in ? expf(acum[i]) : 0.f;
+    wv[i] = in ? expf(alast - acum[i]) * dts[i] : 0.f;
   }
+  if (threadIdx.x == 0) *decay_s = expf(alast);
 }
 
 }  // namespace ssd

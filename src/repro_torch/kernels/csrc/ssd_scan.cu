@@ -85,10 +85,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 using namespace ssd;
+using mma::mma_3xtf32;
 using mma::smem_addr;
 using mma::swz;
+using mma::Tf32;
+using mma::tf32;
 
-constexpr int kMaxCluster = 8;
 constexpr int kCarry = 4;          // carried elements an owner thread holds
 constexpr int kBCPitch = 16;       // 16-byte chunks a row of C, B (N <= 128)
 constexpr int kXPitch = 8;         // 16-byte chunks a row of x (P <= 64)
@@ -138,49 +140,6 @@ __device__ __forceinline__ void state_chain(cg::cluster_group& cluster,
       }
     if (more) carry[slot] = run;
   }
-}
-
-// 4 bytes global -> shared, asynchronously
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// Warp 0 starts the copy of the chunk's dt (strided) into dts as its own
-// group of asynchronous copies; the caller then starts the tiles' copies.
-__device__ __forceinline__ void chunk_dt_start(const float* __restrict__ dtb,
-                                               long long ld, float* dts,
-                                               int s) {
-  if (threadIdx.x >= 32) return;
-  for (int i = threadIdx.x; i < s; i += 32) cp_async4(dts + i, dtb + i * ld);
-  mma::cp_async_commit();
-}
-
-// Warp 0 waits for dt alone (the tiles' group may still be in flight) and
-// thread 0 takes its prefix sum into acum; the caller synchronises after.
-__device__ __forceinline__ void chunk_dt_sum(float Av, const float* dts,
-                                             float* acum, int s) {
-  if (threadIdx.x >= 32) return;
-  mma::cp_async_wait<1>();
-  __syncwarp();
-  chunk_cumsum(dts, Av, acum, s);
-}
-
-// per row: exp(a_cum), the weight exp(a_sum - a_cum) dt of x in the local
-// state, and the chunk's decay exp(a_sum); rows s .. rows - 1 get zeros
-__device__ __forceinline__ void chunk_rows(const float* dts, float* acum,
-                                           float* ecum, float* wv,
-                                           float* decay_s, int s, int rows) {
-  const float alast = acum[s - 1];
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    const bool in = i < s;
-    if (!in) acum[i] = 0.f;
-    ecum[i] = in ? expf(acum[i]) : 0.f;
-    wv[i] = in ? expf(alast - acum[i]) * dts[i] : 0.f;
-  }
-  if (threadIdx.x == 0) *decay_s = expf(alast);
 }
 
 // The causal in-chunk work of a chunk of 8 row tiles (s > 112): tile w has
@@ -237,8 +196,6 @@ __device__ __forceinline__ float exp_fast(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
   return y;
 }
-
-__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
 
 // The bf16 kernel's shared memory, laid out for the largest chunk so that
 // every array sits at a constant offset (s <= 128 rows): C, then B and in
@@ -607,45 +564,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 // f32: tensor cores in 3xTF32
 // ---------------------------------------------------------------------------
-// TF32 operands of mma.m16n8k8: each f32 operand as hi + lo, hi the TF32
-// rounding and lo that of what hi leaves (22 significant bits together);
-// a product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms
-// first), ~2^-21 of |a b|, as close as f32 FMAs summed in another order.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
-}
-
-struct Tf32 {  // a fragment as hi and lo parts
-  uint32_t h, l;
-};
-
-__device__ __forceinline__ Tf32 tf32(float a) {
-  Tf32 v;
-  split_tf32(a, v.h, v.l);
-  return v;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// c += a b in 3xTF32: A (16 x 8) as a[4], B (8 x 8) as b[2]
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Tf32 (&a)[4],
-                                           const Tf32 (&b)[2]) {
-  mma_tf32(c, a[0].l, a[1].l, a[2].l, a[3].l, b[0].h, b[1].h);
-  mma_tf32(c, a[0].h, a[1].h, a[2].h, a[3].h, b[0].l, b[1].l);
-  mma_tf32(c, a[0].h, a[1].h, a[2].h, a[3].h, b[0].h, b[1].h);
-}
-
 constexpr int kF32Pitch = kMaxN + 4;  // floats a row of C, B, the state
 constexpr int kF32XPitch = kMaxP + 4;  // floats a row of x
 // fixed layout (s <= 128): C, B and in its place the state, x, the

@@ -21,573 +21,808 @@
 //   dS0    = e_last dS1 + sum_i e_i g_i (x) C_i
 //   da_cum, ddt, dA, dD from the same pieces,
 //
-// with dM[i, j] = g_i . x_j.  Two kernels:
+// with dM[i, j] = g_i . x_j.
 //
-// 1. ssd_bwd_state_kernel, one block per (b, h), loops over the chunks in
-//    reverse and carries dS (P x N, f32, in registers: a 4 x 8 tile a
-//    thread), writing dS1 of every chunk, (B, H, nc, P, N) f32.
-// 2. ssd_bwd_chunk_kernel, one block per (b, h, chunk), all in parallel:
-//    with S0 (saved by the forward) and dS1 it computes every gradient of
-//    its chunk, the (s, s) matrices 32 key columns at a time, as the
-//    forward does.  dB and dC come out per head, (B, H, L, N) f32, summed
-//    over the heads afterwards by one ordered torch.sum; dA and dD per
-//    (b, h, chunk).  A thread owns the same output elements in every
-//    phase and accumulates them in place, so there are no atomics: the
-//    gradient is the same bits on every run.
+// Bound on this card: operations.  In f32 (the train step's type) the
+// products, C B^T and g x^T over the causal half of every chunk, four more
+// (s, s) products with s P or s N multiply-adds a row, four (s, P, N)
+// state products, are ~17 M multiply-adds per (b, h, chunk) against
+// ~0.3 MB in and out.
 //
-// Bound on this card: operations (in f32, the train step's type), about
-// three times the forward's products (C B^T and g x^T for every column
-// block, plus six (s, P, N) products), here on the CUDA cores.
+// Design: one cluster launch, the forward's grid and hand-off (ssd_scan.cu).
+// One block per (b, h, chunk), the chunks of a row a thread-block cluster of
+// up to 8 (grid (CL, H, B)); longer rows walk windows of CL chunks from the
+// last window to the first.  Per window:
+//   1. every block stages its chunk (x, dy, B, C, its saved start state S0
+//      and dt; bf16 converted to f32 on the way), computes the state part
+//      e (g S0) of dC and its local term sum_i e_i g_i (x) C_i of dS0,
+//      (P, N), in place of S0;
+//   2. after a cluster barrier, block r runs the chain dS1_c =
+//      e_last(c + 1) dS1_{c + 1} + local_{c + 1} in reverse chunk order
+//      for its 1/CL of the (P, N) elements, through distributed shared
+//      memory, leaving each block's dS1 in place of its local term; the
+//      carry to the previous window waits in the owner's registers;
+//   3. after a second barrier every block computes the rest of its
+//      chunk's gradients (passes C and R).
+// Warp w owns row tile w (rows 16 w .. 16 w + 15) in both passes:
+//   pass C: dx and dB of the tile's rows j, u (B dS1^T) + M^T g + D g and
+//           u (x dS1) + Q^T C over the row blocks i >= j, M^T and Q^T
+//           computed transposed (B C^T, x g^T); their row sums are the
+//           column sums of dM (.) M and the direct dt terms;
+//   pass R: dC of the tile's rows i, + Q B over the column blocks j <= i,
+//           Q = dM (.) L (.) dt from C B^T and g x^T; the row sums of
+//           dM (.) M (da_cum[i]).
+// Computing the two score products twice (once a pass) keeps every (s, s)
+// block in registers and every row sum inside one warp, with no block
+// through shared memory.  Tile w has 8 - w blocks in pass C and w + 1 in
+// pass R, nine for every warp, and the passes run back to back with no
+// barrier between them, so no warp waits on another's share.
+// Every product runs on the tensor cores in 3xTF32 (mma.sync m16n8k8, each
+// f32 operand a TF32 hi/lo pair: mma_common.cuh), as the forward's f32
+// kernel, with the split that costs two integer operations and a
+// subtraction (tf32_fast: issue slots, not the tensor cores, bound this
+// kernel; ~2^-20 of each product where the forward's keeps ~2^-21); an
+// (s, s) block's C fragment is the A fragment of the next product with its
+// k order permuted.  The bf16 instance runs the same
+// code on its inputs converted to f32.
+//
+// Shared memory (226 KB, one block an SM): x, dy, B, C and the (P, N)
+// state as f32 tiles laid out for s = 128, P = 64, N = 128 with no
+// padding, swizzled (below), four per-row arrays and a few scalars.  dB
+// and dC come out per head, (B, H, L, N) f32, summed over the heads
+// afterwards by one ordered torch.sum; dA and dD per (b, h, chunk).  Every
+// sum is taken in a fixed order and there are no atomics: the gradient is
+// the same bits on every run.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <type_traits>
+
 #include "ssd_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace ssd;
+using mma::mma_3xtf32;
+using mma::Tf32;
+using mma::tf32_fast;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    ssd_bwd_state_kernel(const float* __restrict__ dt,
-                         const float* __restrict__ A,
-                         const T* __restrict__ Cm, const T* __restrict__ dy,
-                         float* __restrict__ dsend, Strides sd, int H, int L,
-                         int P, int N, int s) {
-  extern __shared__ float smem[];
-  const int PP = P + 1, NP = N + 1;
-  float* gs = smem;          // (s, P) dy
-  float* cs = gs + s * PP;   // (s, N)
-  float* acum = cs + s * NP;
-  float* dts = acum + s;
-  float* ev = dts + s;
+constexpr int kRowW = kMaxN;  // floats a row of C, B and the state
+constexpr int kXW = kMaxP;    // floats a row of x, dy
+constexpr int kCarry = kMaxP * kMaxN / kMaxCluster / kThreads;
+constexpr int kS0Regs = kMaxP * kMaxN / kThreads;
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nc = L / s;
-  const float Av = A[b * sd.a[0] + h * sd.a[1]];
-  const float* dtb = dt + b * sd.dt[0] + h * sd.dt[1];
-  const T* cmb = Cm + b * sd.cm[0];
-  const T* dyb = dy + b * sd.y[0] + h * sd.y[1];
-  float* out = dsend + ((long long)b * H + h) * nc * P * N;
-  int pr[4], nk[8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) pr[r] = min(ty + 16 * r, P - 1);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) nk[k] = min(tx + 16 * k, N - 1);
-
-  float ds[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) ds[r][k] = 0.f;
-
-  for (int c = nc - 1; c >= 0; --c) {
-    float* o = out + c * (long long)P * N;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int p = ty + 16 * r;
-      if (p >= P) continue;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int n = tx + 16 * k;
-        if (n < N) o[p * N + n] = ds[r][k];
-      }
-    }
-    if (c == 0) break;
-    const long long i0 = (long long)c * s;
-    for (int i = tid; i < s; i += kThreads) dts[i] = dtb[(i0 + i) * sd.dt[2]];
-    stage(dyb + i0 * sd.y[2], sd.y[2], s, P, gs, PP);
-    stage(cmb + i0 * sd.cm[1], sd.cm[1], s, N, cs, NP);
-    __syncthreads();
-    chunk_cumsum(dts, Av, acum, s);
-    __syncthreads();
-    for (int i = tid; i < s; i += kThreads) ev[i] = expf(acum[i]);
-    __syncthreads();
-    const float elast = expf(acum[s - 1]);
-    float t[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) t[r][k] = 0.f;
-    for (int i = 0; i < s; ++i) {
-      const float e = ev[i];
-      float gv[4], cv[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) gv[r] = gs[i * PP + pr[r]] * e;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) cv[k] = cs[i * NP + nk[k]];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) t[r][k] = fmaf(gv[r], cv[k], t[r][k]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) ds[r][k] = elast * ds[r][k] + t[r][k];
-    __syncthreads();  // before the next chunk's loads
+// f32 tiles of W floats a row (a multiple of 32), element (r, c) at
+// r W + (c ^ swz(r)): the XOR touches bits 2-4 only, so 16-byte chunks stay
+// whole.  x, dy, B, C take SwzIn: the fragments read 8 rows x 4 columns
+// (A, and B of a product with the tile's transpose) and rows 2t, 2t + 1 x
+// 8 columns (B of a product with the tile in the permuted k order) without
+// bank conflicts.  The state takes SwzSt, for 8 rows x 4 columns and rows
+// t, t + 4 x 8 columns.
+struct SwzIn {
+  __device__ __forceinline__ int operator()(int r) const {
+    return (r & 7) << 2;
   }
+};
+struct SwzSt {
+  __device__ __forceinline__ int operator()(int r) const {
+    return ((r & 3) << 3) | (r & 4);
+  }
+};
+
+// fixed layout (s <= 128, P <= 64, N <= 128): C, B, x, dy, the state, four
+// per-row arrays, and the scalars (block-sum slots, per-warp sums, the
+// chunk's decay)
+constexpr uint32_t kCOff = 0;
+constexpr uint32_t kBOff = kCOff + kMaxS * kRowW * 4;
+constexpr uint32_t kXOff = kBOff + kMaxS * kRowW * 4;
+constexpr uint32_t kGOff = kXOff + kMaxS * kXW * 4;
+constexpr uint32_t kStOff = kGOff + kMaxS * kXW * 4;
+constexpr uint32_t kRowsOff = kStOff + kMaxP * kRowW * 4;
+constexpr uint32_t kMiscOff = kRowsOff + 4 * kMaxS * 4;
+constexpr uint32_t kSmem = kMiscOff + 32 * 4;
+static_assert(kSmem <= 232448, "over a block's shared memory");
+
+// rows [0, rows) x columns [0, cols) (a multiple of 4) of a (n_valid,
+// width) slab with row stride ld into a swizzled f32 tile, zeros past row
+// n_valid and column width: f32 by 16-byte asynchronous copies and bf16
+// by 8-byte loads converted on the way where `vec` (rows aligned, width %
+// 4 == 0), else element by element
+template <int W, typename T, typename Swz>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const T* __restrict__ src,
+                                           long long ld, int n_valid,
+                                           int rows, int width, int cols,
+                                           bool vec, Swz swz) {
+  const int c4 = cols >> 2;
+  for (int idx = threadIdx.x; idx < rows * c4; idx += kThreads) {
+    const int r = idx / c4, c = 4 * (idx - r * c4);
+    float* d = dst + r * W + (c ^ swz(r));
+    const bool in = r < n_valid && c < width;
+    const T* p = src + r * ld + c;
+    if (vec) {
+      if constexpr (std::is_same<T, float>::value) {
+        mma::cp_async16(mma::smem_addr(d), in ? p : src, in);
+      } else {
+        const uint2 v =
+            in ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+        *reinterpret_cast<float4*>(d) =
+            make_float4(mma::bf16_lo(v.x), mma::bf16_hi(v.x),
+                        mma::bf16_lo(v.y), mma::bf16_hi(v.y));
+      }
+    } else {
+      float4 v;
+      v.x = in ? to_f32(p[0]) : 0.f;
+      v.y = in && c + 1 < width ? to_f32(p[1]) : 0.f;
+      v.z = in && c + 2 < width ? to_f32(p[2]) : 0.f;
+      v.w = in && c + 3 < width ? to_f32(p[3]) : 0.f;
+      *reinterpret_cast<float4*>(d) = v;
+    }
+  }
+}
+
+__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
+
+// A fragment (16 x 8): rows r0 .. r0 + 15 (r0 % 8 == 0), columns k0 ..
+// k0 + 7 of a SwzIn tile
+template <int W>
+__device__ __forceinline__ void frag_rows(const float* m, int r0, int k0,
+                                          Tf32 (&a)[4]) {
+  const int g = lane_g(), t = lane_t();
+  const float* p = m + (r0 + g) * W;
+  const int c0 = (k0 + t) ^ (g << 2), c1 = (k0 + t + 4) ^ (g << 2);
+  a[0] = tf32_fast(p[c0]);
+  a[1] = tf32_fast(p[8 * W + c0]);
+  a[2] = tf32_fast(p[c1]);
+  a[3] = tf32_fast(p[8 * W + c1]);
+}
+
+// B fragment (8 x 8) of the product with a tile's transpose: B[k][n] =
+// m[n0 + n][k0 + k]
+template <int W, typename Swz>
+__device__ __forceinline__ void frag_bt(const float* m, int n0, int k0,
+                                        Swz swz, Tf32 (&b)[2]) {
+  const int g = lane_g(), t = lane_t();
+  const float* p = m + (n0 + g) * W;
+  const int sw = swz(n0 + g);
+  b[0] = tf32_fast(p[(k0 + t) ^ sw]);
+  b[1] = tf32_fast(p[(k0 + t + 4) ^ sw]);
+}
+
+// B fragment of the product with a SwzIn tile as stored, B[k][n] =
+// m[k0 + k][n0 + n], in the permuted k order of an A fragment taken from a
+// C fragment (A column t is k 2t, column t + 4 is k 2t + 1)
+template <int W>
+__device__ __forceinline__ void frag_b_perm(const float* m, int k0, int n0,
+                                            Tf32 (&b)[2]) {
+  const int g = lane_g(), t = lane_t();
+  b[0] = tf32_fast(m[(k0 + 2 * t) * W + ((n0 + g) ^ (8 * t))]);
+  b[1] = tf32_fast(m[(k0 + 2 * t + 1) * W + ((n0 + g) ^ (8 * t + 4))]);
+}
+
+// B fragment of the product with the state tile as stored (k order as
+// given): B[k][n] = st[k0 + k][n0 + n]
+__device__ __forceinline__ void frag_b_st(const float* st, int k0, int n0,
+                                          Tf32 (&b)[2]) {
+  const int g = lane_g(), t = lane_t();
+  b[0] = tf32_fast(st[(k0 + t) * kRowW + ((n0 + g) ^ (8 * t))]);
+  b[1] = tf32_fast(st[(k0 + t + 4) * kRowW + ((n0 + g) ^ (8 * t + 4))]);
+}
+
+// A fragment from the C fragment of a 16 x 8 tile: C element e is (row g +
+// 8 (e >> 1), column 2t + (e & 1)), A register (e >> 1) + 2 (e & 1)
+__device__ __forceinline__ int a_slot(int e) { return (e >> 1) + 2 * (e & 1); }
+
+// the sum over the four lanes of a quad (the lanes of one fragment row)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// two neighbouring f32 of a shared-memory tile row
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// adds to two neighbouring f32 of an output row of N that this thread
+// wrote before (store2), n even
+__device__ __forceinline__ void add2(float* row, int n, int N, float v0,
+                                     float v1) {
+  if ((N & 1) == 0 && n + 1 < N) {
+    float2* q = reinterpret_cast<float2*>(row + n);
+    const float2 o = *q;
+    *q = make_float2(o.x + v0, o.y + v1);
+  } else {
+    if (n < N) row[n] += v0;
+    if (n + 1 < N) row[n + 1] += v1;
+  }
+}
+
+// two neighbouring f32 of an output row of N, n even
+__device__ __forceinline__ void store2(float* row, int n, int N, float v0,
+                                       float v1) {
+  if ((N & 1) == 0 && n + 1 < N) {
+    *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+  } else {
+    if (n < N) row[n] = v0;
+    if (n + 1 < N) row[n + 1] = v1;
+  }
+}
+
+// One element of the reverse chain (SwzSt position of element e = (p, n)):
+// block q's local term is replaced by dS1 of chunk q, from q = nq - 1 down,
+// run = dS1 of the window's last chunk on entry and dS1 of the chunk before
+// the window on return (each step rounded twice, as the plain version's
+// autograd does)
+__device__ __forceinline__ float chain_elem(cg::cluster_group& cluster,
+                                            float* st, int e, int N, int nq,
+                                            const float (&dec)[kMaxCluster],
+                                            float run) {
+  const int p = e / N, n = e - p * N;
+  float* elem = st + p * kRowW + (n ^ SwzSt{}(p));
+  float loc[kMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    if (q < nq) loc[q] = *cluster.map_shared_rank(elem, q);
+#pragma unroll
+  for (int q = kMaxCluster - 1; q >= 0; --q)
+    if (q < nq) {
+      *cluster.map_shared_rank(elem, q) = run;
+      run = __fadd_rn(__fmul_rn(run, dec[q]), loc[q]);
+    }
+  return run;
+}
+
+// Block r's share of the reverse chain over the window's nq chunks.
+// decay_s: each block's exp(a_sum).  carry: the owner's dS1 of the chunk
+// before the window, kept in registers for the previous window (more
+// than one window means CL = 8 and at most kCarry elements a thread).
+__device__ __forceinline__ void state_chain_rev(cg::cluster_group& cluster,
+                                                float* st, int P, int N,
+                                                int nq, bool last, bool more,
+                                                const float* decay_s,
+                                                float (&carry)[kCarry]) {
+  const int r = (int)cluster.block_rank();
+  const int CL = (int)cluster.num_blocks();
+  const int E = P * N;
+  const int per = (E + CL - 1) / CL;
+  const int e0 = r * per, e1 = min(E, e0 + per);
+  float dec[kMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    dec[q] = q < nq ? *cluster.map_shared_rank(decay_s, q) : 0.f;
+#pragma unroll
+  for (int k = 0; k < kCarry; ++k) {
+    const int e = e0 + (int)threadIdx.x + k * kThreads;
+    if (e < e1) {
+      const float run =
+          chain_elem(cluster, st, e, N, nq, dec, last ? 0.f : carry[k]);
+      if (more) carry[k] = run;
+    }
+  }
+  // a single window of fewer than 8 chunks: more elements, no carry
+  for (int e = e0 + (int)threadIdx.x + kCarry * kThreads; e < e1;
+       e += kThreads)
+    chain_elem(cluster, st, e, N, nq, dec, 0.f);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                         const float* __restrict__ A, const T* __restrict__ Bm,
-                         const T* __restrict__ Cm, const float* __restrict__ D,
-                         const T* __restrict__ dy,
-                         const float* __restrict__ states,
-                         const float* __restrict__ dsend, T* __restrict__ dx,
-                         float* __restrict__ ddt, float* __restrict__ dbp,
-                         float* __restrict__ dcp, float* __restrict__ dap,
-                         float* __restrict__ ddp, Strides sd, int H, int L,
-                         int P, int N, int s) {
-  extern __shared__ float smem[];
-  const int PP = P + 1, NP = N + 1;
-  const int p2len = max(s * PP, P * NP);
-  float* p1 = smem;            // x (phase 1), then dy
-  float* p2 = p1 + s * PP;     // dS1, then S0, then x
-  float* n1 = p2 + p2len;      // B
-  float* n2 = n1 + s * NP;     // C
-  float* wb = n2 + s * NP;     // (s, 32) block of an (s, s) matrix
-  float* acum = wb + s * kWPitch;
-  float* dts = acum + s;
-  float* ev = dts + s;         // exp(a_cum)
-  float* uv = ev + s;          // exp(a_cum[-1] - a_cum) * dt
-  float* dac = uv + s;         // gradient of a_cum
-  float* ddts = dac + s;       // direct gradient of dt
-  float* du = ddts + s;
-  float* colT = du + s;        // (16, 32) column partials
-  float* colK = colT + 16 * kJB;
-  float* red = colK + 16 * kJB;  // 32
+    ssd_bwd_tf32_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                        const float* __restrict__ A, const T* __restrict__ Bm,
+                        const T* __restrict__ Cm, const float* __restrict__ D,
+                        const T* __restrict__ dy,
+                        const float* __restrict__ states, T* __restrict__ dx,
+                        float* __restrict__ ddt, float* __restrict__ dbp,
+                        float* __restrict__ dcp, float* __restrict__ dap,
+                        float* __restrict__ ddp, Strides sd, int H, int L,
+                        int P, int N, int s) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nc = L / s, nw = (nc + CL - 1) / CL;
+  const int rows = round16(s), tiles = rows / 16;
+  const int P8 = (P + 7) / 8 * 8, N8 = (N + 7) / 8 * 8, P16 = round16(P);
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.x;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long i0 = (long long)c * s;
-  const long long bhc = ((long long)b * H + h) * nc + c;
+  float* cs = reinterpret_cast<float*>(smem + kCOff);
+  float* bs = reinterpret_cast<float*>(smem + kBOff);
+  float* xs = reinterpret_cast<float*>(smem + kXOff);
+  float* gs = reinterpret_cast<float*>(smem + kGOff);
+  float* st = reinterpret_cast<float*>(smem + kStOff);  // S0, local, dS1
+  float* acum = reinterpret_cast<float*>(smem + kRowsOff);
+  float* dts = acum + kMaxS;
+  float* ev = dts + kMaxS;  // exp(a_cum); after pass C, da_cum
+  float* uv = ev + kMaxS;   // exp(a_sum - a_cum) dt; then the direct ddt
+  float* red = reinterpret_cast<float*>(smem + kMiscOff);
+  float* lastw = red + 8;   // per warp: sum_j du_j u_j
+  float* decay_s = red + 16;
+
   const float Av = A[b * sd.a[0] + h * sd.a[1]];
   const float Dv = D[b * sd.d[0] + h * sd.d[1]];
-  const T* xb = x + b * sd.x[0] + h * sd.x[1] + i0 * sd.x[2];
+  const T* xb = x + b * sd.x[0] + h * sd.x[1];
   const float* dtb = dt + b * sd.dt[0] + h * sd.dt[1];
-  const T* bmb = Bm + b * sd.bm[0] + i0 * sd.bm[1];
-  const T* cmb = Cm + b * sd.cm[0] + i0 * sd.cm[1];
-  const T* dyb = dy + b * sd.y[0] + h * sd.y[1] + i0 * sd.y[2];
-  T* dxb = dx + b * sd.dx[0] + h * sd.dx[1] + i0 * sd.dx[2];
+  const T* bmb = Bm + b * sd.bm[0];
+  const T* cmb = Cm + b * sd.cm[0];
+  const T* dyb = dy + b * sd.y[0] + h * sd.y[1];
+  T* dxb = dx + b * sd.dx[0] + h * sd.dx[1];
   float* ddtb = ddt + b * sd.ddt[0] + h * sd.ddt[1];
-  const float* S0 = states + bhc * P * N;
-  const float* dS1 = dsend + bhc * P * N;
-  // per-head partial dB, dC: rows of this chunk
-  const long long prow = ((long long)b * H + h) * L + i0;
-  float* dbc = dbp + prow * N;
-  float* dcc = dcp + prow * N;
+  const long long bh = (long long)b * H + h;
+  auto al4 = [](const void* p) {  // aligned to 4 elements
+    return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+  };
+  const bool vec_x = P % 4 == 0 && sd.x[2] % 4 == 0 && sd.x[0] % 4 == 0 &&
+                     sd.x[1] % 4 == 0 && al4(x);
+  const bool vec_g = P % 4 == 0 && sd.y[2] % 4 == 0 && sd.y[0] % 4 == 0 &&
+                     sd.y[1] % 4 == 0 && al4(dy);
+  const bool vec_bc = N % 4 == 0 && sd.bm[1] % 4 == 0 &&
+                      sd.cm[1] % 4 == 0 && sd.bm[0] % 4 == 0 &&
+                      sd.cm[0] % 4 == 0 && al4(Bm) && al4(Cm);
+  const bool vec_st = N % 4 == 0;  // contiguous (P, N) slabs
 
-  int ic[8], pc[4], nk[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) ic[r] = min(ty + 16 * r, s - 1);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) pc[q] = min(tx + 16 * q, P - 1);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) nk[k] = min(tx + 16 * k, N - 1);
+  // this warp's row tile: rows ra (C-fragment rows g) and rb (g + 8)
+  const int r0 = 16 * warp;
+  const bool tile = r0 < rows;
+  const int ra = r0 + g, rb = ra + 8;
 
-  // ---- phase 0: decays --------------------------------------------------
-  for (int i = tid; i < s; i += kThreads) dts[i] = dtb[(i0 + i) * sd.dt[2]];
-  __syncthreads();
-  chunk_cumsum(dts, Av, acum, s);
-  __syncthreads();
-  const float alast = acum[s - 1];
-  for (int i = tid; i < s; i += kThreads) {
-    ev[i] = expf(acum[i]);
-    uv[i] = expf(alast - acum[i]) * dts[i];
-    dac[i] = 0.f;
-    ddts[i] = 0.f;
-  }
+  float carry[kCarry];
+  for (int w = nw - 1; w >= 0; --w) {
+    const int c = w * CL + rank;
+    const bool active = c < nc;
+    const long long l0 = (long long)c * s;
+    const long long bhc = bh * nc + c;
+    float s0r[kS0Regs];  // S0 as stored, for <dS1, S0>
+    // lane partials of da_cum[ra], [rb]: dC_state . C, then sum_j dM M
+    float rowa = 0.f, rowb = 0.f;
 
-  // ---- phase 1: the end state's terms (x, B, dS1) ------------------------
-  stage(xb, sd.x[2], s, P, p1, PP);
-  stage(bmb, sd.bm[1], s, N, n1, NP);
-  stage(dS1, (long long)N, P, N, p2, NP);
-  __syncthreads();
-  // dx_j = u_j dS1 B_j (rows j = ty + 16 r, columns p = tx + 16 q)
-  float dxa[8][4];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) dxa[r][q] = 0.f;
-  for (int n = 0; n < N; ++n) {
-    float bv[8], sv[4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) bv[r] = n1[ic[r] * NP + n];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) sv[q] = p2[pc[q] * NP + n];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dxa[r][q] = fmaf(bv[r], sv[q], dxa[r][q]);
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const float u = uv[ic[r]];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) dxa[r][q] *= u;
-  }
-  // (x dS1)[j, n]: dB_j = u_j (x dS1)[j], du_j = (x dS1)[j] . B_j; columns
-  // n = tx + 16 k in two halves of four
-  float rowacc[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) rowacc[r] = 0.f;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float t[8][4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) t[r][k] = 0.f;
-    for (int p = 0; p < P; ++p) {
-      float xv[8], sv[4];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) xv[r] = p1[ic[r] * PP + p];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sv[k] = p2[p * NP + nk[4 * half + k]];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) t[r][k] = fmaf(xv[r], sv[k], t[r][k]);
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = ty + 16 * r;
-      if (i >= s) continue;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int n = tx + 16 * (4 * half + k);
-        if (n >= N) continue;
-        dbc[i * (long long)N + n] = uv[i] * t[r][k];
-        rowacc[r] = fmaf(t[r][k], n1[i * NP + n], rowacc[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const float v = half_warp_sum(rowacc[r]);
-    const int i = ty + 16 * r;
-    if (tx == 0 && i < s) du[i] = v;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float last = 0.f;
-    for (int j = 0; j < s; ++j) {
-      const float duu = du[j] * uv[j];
-      dac[j] -= duu;
-      last += duu;
-      ddts[j] += du[j] * expf(alast - acum[j]);
-    }
-    dac[s - 1] += last;
-  }
-  __syncthreads();
+    if (active) {
+      chunk_dt_start(dtb + l0 * sd.dt[2], sd.dt[2], dts, s);
+      stage_tile<kRowW>(cs, cmb + l0 * sd.cm[1], sd.cm[1], s, rows, N, N8,
+                        vec_bc, SwzIn{});
+      stage_tile<kRowW>(bs, bmb + l0 * sd.bm[1], sd.bm[1], s, rows, N, N8,
+                        vec_bc, SwzIn{});
+      // x and dy over whole rows, zeros past P: dD sums the tiles
+      stage_tile<kXW>(xs, xb + l0 * sd.x[2], sd.x[2], s, rows, P, kXW, vec_x,
+                      SwzIn{});
+      stage_tile<kXW>(gs, dyb + l0 * sd.y[2], sd.y[2], s, rows, P, kXW,
+                      vec_g, SwzIn{});
+      // the whole state tile, zeros past (P, N): <dS1, S0> reads it all
+      stage_tile<kRowW>(st, states + bhc * P * N, (long long)N, P, kMaxP, N,
+                        kRowW, vec_st, SwzSt{});
+      mma::cp_async_commit();
+      chunk_dt_sum(Av, dts, acum, s);
+      mma::cp_async_wait<0>();
+      __syncthreads();
+      chunk_rows(dts, acum, ev, uv, decay_s, s, rows);
+      __syncthreads();
 
-  // ---- phase 2: the start state's terms (dy, C, S0) ----------------------
-  stage(dyb, sd.y[2], s, P, p1, PP);
-  stage(cmb, sd.cm[1], s, N, n2, NP);
-  stage(S0, (long long)N, P, N, p2, NP);
-  __syncthreads();
-  // dC_i = e_i S0^T g_i; da_cum[i] += dC_i . C_i
+      // ---- dC of rows i, its state part e (g S0) (k = P): stored now, the
+      // in-chunk part Q B added after the chain (pass R)
+      if (tile) {
+        float dc[16][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) rowacc[r] = 0.f;
+        for (int n = 0; n < 16; ++n)
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float t[8][4];
+          for (int e = 0; e < 4; ++e) dc[n][e] = 0.f;
+        for (int k0 = 0; k0 < P8; k0 += 8) {
+          Tf32 a[4];
+          frag_rows<kXW>(gs, r0, k0, a);
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+          for (int nn = 0; nn < 16; ++nn) {
+            if (8 * nn >= N8) break;
+            Tf32 bb[2];
+            frag_b_st(st, k0, 8 * nn, bb);
+            mma_3xtf32(dc[nn], a, bb);
+          }
+        }
+        // dC_state = e (g S0); da_cum[i] += dC_state_i . C_i
+        const float ea = ev[ra], eb = ev[rb];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) t[r][k] = 0.f;
-    for (int p = 0; p < P; ++p) {
-      float gv[8], sv[4];
+        for (int nn = 0; nn < 16; ++nn) {
+          if (8 * nn >= N8) break;
+          const int n = (8 * nn + 2 * t) ^ (g << 2);
+          const float2 ca = ld2(cs + ra * kRowW + n);
+          const float2 cb = ld2(cs + rb * kRowW + n);
+          dc[nn][0] *= ea;
+          dc[nn][1] *= ea;
+          dc[nn][2] *= eb;
+          dc[nn][3] *= eb;
+          rowa = fmaf(dc[nn][0], ca.x, fmaf(dc[nn][1], ca.y, rowa));
+          rowb = fmaf(dc[nn][2], cb.x, fmaf(dc[nn][3], cb.y, rowb));
+        }
+        float* dcr = dcp + (bh * L + l0) * N;
 #pragma unroll
-      for (int r = 0; r < 8; ++r) gv[r] = p1[ic[r] * PP + p];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sv[k] = p2[p * NP + nk[4 * half + k]];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) t[r][k] = fmaf(gv[r], sv[k], t[r][k]);
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = ty + 16 * r;
-      if (i >= s) continue;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int n = tx + 16 * (4 * half + k);
-        if (n >= N) continue;
-        const float v = ev[i] * t[r][k];
-        dcc[i * (long long)N + n] = v;
-        rowacc[r] = fmaf(v, n2[i * NP + n], rowacc[r]);
+        for (int nn = 0; nn < 16; ++nn) {
+          if (8 * nn >= N8) break;
+          const int n = 8 * nn + 2 * t;
+          if (ra < s)
+            store2(dcr + (long long)ra * N, n, N, dc[nn][0], dc[nn][1]);
+          if (rb < s)
+            store2(dcr + (long long)rb * N, n, N, dc[nn][2], dc[nn][3]);
+        }
       }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const float v = half_warp_sum(rowacc[r]);
-    const int i = ty + 16 * r;
-    if (tx == 0 && i < s) dac[i] += v;
-  }
-  // dx_j += D g_j
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      dxa[r][q] = fmaf(Dv, p1[ic[r] * PP + pc[q]], dxa[r][q]);
-  // da_cum[-1] += e_last <dS1, S0>
-  float part = 0.f;
-  for (int idx = tid; idx < P * N; idx += kThreads) {
-    const int p = idx / N, n = idx - p * N;
-    part = fmaf(dS1[idx], p2[p * NP + n], part);
-  }
-  const float dot = block_sum(part, red);
-  if (tid == 0) dac[s - 1] += expf(alast) * dot;
-  __syncthreads();
 
-  // ---- phase 3: the in-chunk terms (x, dy, B, C) -------------------------
-  stage(xb, sd.x[2], s, P, p2, PP);
-  __syncthreads();
-  part = 0.f;
-  for (int idx = tid; idx < s * P; idx += kThreads) {
-    const int i = idx / P, p = idx - i * P;
-    part = fmaf(p1[i * PP + p], p2[i * PP + p], part);
-  }
-  const float dD = block_sum(part, red);
-
+      // ---- the local term (e (.) g)^T C of dS0, (P, N), k = the chunk ----
+      // warp w: p-tile w % TP and its share of the 8-column n-tiles
+      const int TP = P16 / 16, GR = (kThreads / 32) / TP;
+      const int NT8 = N8 / 8, per = (NT8 + GR - 1) / GR;
+      const int m0 = 16 * (warp % TP), n0 = (warp / TP) * per;
+      const int n1 = min(NT8, n0 + per);
+      float la[8][4];
 #pragma unroll
-  for (int jb = 0; jb < kMaxS / kJB; ++jb) {
-    const int j0 = jb * kJB;
-    if (j0 >= s) break;
-    int jc[2];
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int k = 0; k < 2; ++k) jc[k] = min(j0 + tx + 16 * k, s - 1);
-    // C B^T and dM = g x^T on this thread's 8 x 2 entries
-    float cb[8][2], dm[8][2];
+        for (int e = 0; e < 4; ++e) la[n][e] = 0.f;
+      if (warp < TP * GR) {
+        for (int k0 = 0; k0 < rows; k0 += 8) {
+          // A[p][i] = e_i g[i][p], the k order permuted as frag_b_perm's
+          const float e0 = ev[k0 + 2 * t], e1 = ev[k0 + 2 * t + 1];
+          const float* q0 = gs + (k0 + 2 * t) * kXW;
+          const float* q1 = q0 + kXW;
+          Tf32 a[4];
+          a[0] = tf32_fast(e0 * q0[(m0 + g) ^ (8 * t)]);
+          a[1] = tf32_fast(e0 * q0[(m0 + g + 8) ^ (8 * t)]);
+          a[2] = tf32_fast(e1 * q1[(m0 + g) ^ (8 * t + 4)]);
+          a[3] = tf32_fast(e1 * q1[(m0 + g + 8) ^ (8 * t + 4)]);
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int k = 0; k < 2; ++k) cb[r][k] = dm[r][k] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const float b0 = n1[jc[0] * NP + n], b1 = n1[jc[1] * NP + n];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        if (16 * r + 15 < j0 || 16 * r >= s) continue;
-        const float cv = n2[ic[r] * NP + n];
-        cb[r][0] = fmaf(cv, b0, cb[r][0]);
-        cb[r][1] = fmaf(cv, b1, cb[r][1]);
-      }
-    }
-    for (int p = 0; p < P; ++p) {
-      const float x0 = p2[jc[0] * PP + p], x1 = p2[jc[1] * PP + p];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        if (16 * r + 15 < j0 || 16 * r >= s) continue;
-        const float gv = p1[ic[r] * PP + p];
-        dm[r][0] = fmaf(gv, x0, dm[r][0]);
-        dm[r][1] = fmaf(gv, x1, dm[r][1]);
-      }
-    }
-    // M, dCB = dM L dt, and the a_cum / dt gradients of the decays
-    float mm[8][2], dcb[8][2], rowT[8], colT_[2] = {0.f, 0.f},
-        colK_[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      rowT[r] = 0.f;
-      const int i = ty + 16 * r;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int j = j0 + tx + 16 * k;
-        mm[r][k] = dcb[r][k] = 0.f;
-        if (16 * r + 15 < j0 || i >= s || j >= s || i < j) continue;
-        const float lm = expf(acum[i] - acum[j]);
-        const float kk = cb[r][k] * lm;
-        const float m = kk * dts[j];
-        const float tt = dm[r][k] * m;
-        mm[r][k] = m;
-        dcb[r][k] = dm[r][k] * lm * dts[j];
-        rowT[r] += tt;
-        colT_[k] += tt;
-        colK_[k] = fmaf(dm[r][k], kk, colK_[k]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float v = half_warp_sum(rowT[r]);
-      const int i = ty + 16 * r;
-      if (tx == 0 && i < s) dac[i] += v;
-    }
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      colT[ty * kJB + tx + 16 * k] = colT_[k];
-      colK[ty * kJB + tx + 16 * k] = colK_[k];
-    }
-    __syncthreads();  // also: the previous column block's wb reads are done
-    if (tid < kJB && j0 + tid < s) {
-      float a = 0.f, kd = 0.f;
-      for (int t = 0; t < 16; ++t) {
-        a += colT[t * kJB + tid];
-        kd += colK[t * kJB + tid];
-      }
-      dac[j0 + tid] -= a;
-      ddts[j0 + tid] += kd;
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = ty + 16 * r;
-      if (16 * r + 15 < j0 || i >= s) continue;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) wb[i * kWPitch + tx + 16 * k] = mm[r][k];
-    }
-    __syncthreads();
-    // dx_j += sum_i M[i, j] g_i for this block's rows j = j0 + ty + 16 rr,
-    // which are rows 2 jb + rr of this thread's dx tile
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      for (int i = j0; i < s; ++i) {
-        const float w = wb[i * kWPitch + ty + 16 * rr];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          dxa[2 * jb + rr][q] = fmaf(w, p1[i * PP + pc[q]],
-                                     dxa[2 * jb + rr][q]);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = ty + 16 * r;
-      if (16 * r + 15 < j0 || i >= s) continue;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) wb[i * kWPitch + tx + 16 * k] = dcb[r][k];
-    }
-    __syncthreads();
-    // dC_i += sum_j dCB[i, j] B_j (rows i, columns n in two halves)
-    const int jn = min(kJB, s - j0);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float t[8][4];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) t[r][k] = 0.f;
-      for (int jj = 0; jj < jn; ++jj) {
-        float bv[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) bv[k] = n1[(j0 + jj) * NP + nk[4 * half + k]];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          if (16 * r + 15 < j0 || 16 * r >= s) continue;
-          const float w = wb[ic[r] * kWPitch + jj];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) t[r][k] = fmaf(w, bv[k], t[r][k]);
+          for (int n = 0; n < 8; ++n) {
+            if (n0 + n >= n1) break;
+            Tf32 bb[2];
+            frag_b_perm<kRowW>(cs, k0, 8 * (n0 + n), bb);
+            mma_3xtf32(la[n], a, bb);
+          }
         }
       }
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int i = ty + 16 * r;
-        if (16 * r + 15 < j0 || i >= s) continue;
+      for (int k = 0; k < kS0Regs; ++k) s0r[k] = st[tid + k * kThreads];
+      __syncthreads();  // S0 is read: the local term takes its place
+      if (warp < TP * GR) {
+        const int p = m0 + g;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int n = tx + 16 * (4 * half + k);
-          if (n < N) dcc[i * (long long)N + n] += t[r][k];
+        for (int n = 0; n < 8; ++n) {
+          if (n0 + n >= n1) break;
+          const int col = (8 * (n0 + n) + 2 * t) ^ SwzSt{}(p);
+          *reinterpret_cast<float2*>(st + p * kRowW + col) =
+              make_float2(la[n][0], la[n][1]);
+          *reinterpret_cast<float2*>(st + (p + 8) * kRowW + col) =
+              make_float2(la[n][2], la[n][3]);
         }
       }
     }
-    // dB_j += sum_i dCB[i, j] C_i (rows j = j0 + ty + 16 rr, columns
-    // n = tx + 16 k: the entries this thread wrote in phase 1)
-    float t2[2][8];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) t2[rr][k] = 0.f;
-    for (int i = j0; i < s; ++i) {
-      float cv[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) cv[k] = n2[i * NP + nk[k]];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const float w = wb[i * kWPitch + ty + 16 * rr];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) t2[rr][k] = fmaf(w, cv[k], t2[rr][k]);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int j = j0 + ty + 16 * rr;
-      if (j >= s) continue;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int n = tx + 16 * k;
-        if (n < N) dbc[j * (long long)N + n] += t2[rr][k];
-      }
-    }
-  }
 
-  // ---- phase 4: dx, then a_cum -> dt, A ----------------------------------
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = ty + 16 * r;
-    if (i >= s) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int p = tx + 16 * q;
-      if (p < P) dxb[i * sd.dx[2] + p] = from_f32<T>(dxa[r][q]);
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // a_cum[i] = sum_{k <= i} dt_k A: da_k = sum_{i >= k} da_cum[i]
-    float run = 0.f, dA = 0.f;
-    for (int k = s - 1; k >= 0; --k) {
-      run += dac[k];
-      ddtb[(i0 + k) * sd.ddt[2]] = ddts[k] + run * Av;
-      dA = fmaf(run, dts[k], dA);
-    }
-    dap[bhc] = dA;
-    ddp[bhc] = dD;
-  }
-}
+    cluster.sync();  // every local term and decay of the window is out
+    state_chain_rev(cluster, st, P, N, min(CL, nc - w * CL), w == nw - 1,
+                    w > 0, decay_s, carry);
+    cluster.sync();  // every chunk's dS1 is in place
 
-size_t chunk_smem(int P, int N, int s) {
-  const size_t sp = (size_t)s * (P + 1), pn = (size_t)P * (N + 1);
-  return sizeof(float) * (sp + (sp > pn ? sp : pn) + 2 * (size_t)s * (N + 1) +
-                          (size_t)s * kWPitch + 7 * (size_t)s + 32 * kJB + 32);
+    if (active) {
+      // <dS1, S0> and dD = sum g x, as block sums in a fixed order
+      float part = 0.f;
+#pragma unroll
+      for (int k = 0; k < kS0Regs; ++k)
+        part = fmaf(s0r[k], st[tid + k * kThreads], part);
+      const float dot = block_sum(part, red);
+      part = 0.f;
+      for (int idx = tid; idx < rows * kXW; idx += kThreads)
+        part = fmaf(gs[idx], xs[idx], part);
+      const float dD = block_sum(part, red);
+
+      // ---- pass C: dx and dB of rows j -----------------------------------
+      if (tile) {
+        float dxa[8][4], dba[16][4];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dxa[n][e] = 0.f;
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dba[n][e] = 0.f;
+        // x dS1 (k = P): dB_j = u_j (x dS1)_j, du_j = (x dS1)_j . B_j
+        for (int k0 = 0; k0 < P8; k0 += 8) {
+          Tf32 a[4];
+          frag_rows<kXW>(xs, r0, k0, a);
+#pragma unroll
+          for (int nn = 0; nn < 16; ++nn) {
+            if (8 * nn >= N8) break;
+            Tf32 bb[2];
+            frag_b_st(st, k0, 8 * nn, bb);
+            mma_3xtf32(dba[nn], a, bb);
+          }
+        }
+        const float ua = uv[ra], ub = uv[rb];
+        float dua = 0.f, dub = 0.f;
+#pragma unroll
+        for (int nn = 0; nn < 16; ++nn) {
+          if (8 * nn >= N8) break;
+          const int n = (8 * nn + 2 * t) ^ (g << 2);
+          const float2 ba = ld2(bs + ra * kRowW + n);
+          const float2 bb = ld2(bs + rb * kRowW + n);
+          dua = fmaf(dba[nn][0], ba.x, fmaf(dba[nn][1], ba.y, dua));
+          dub = fmaf(dba[nn][2], bb.x, fmaf(dba[nn][3], bb.y, dub));
+          dba[nn][0] *= ua;
+          dba[nn][1] *= ua;
+          dba[nn][2] *= ub;
+          dba[nn][3] *= ub;
+        }
+        dua = quad_sum(dua);
+        dub = quad_sum(dub);
+        // dx_j = u_j B_j dS1^T (k = N)
+        for (int k0 = 0; k0 < N8; k0 += 8) {
+          Tf32 a[4];
+          frag_rows<kRowW>(bs, r0, k0, a);
+#pragma unroll
+          for (int pn = 0; pn < 8; ++pn) {
+            if (8 * pn >= P8) break;
+            Tf32 bb[2];
+            frag_bt<kRowW>(st, 8 * pn, k0, SwzSt{}, bb);
+            mma_3xtf32(dxa[pn], a, bb);
+          }
+        }
+#pragma unroll
+        for (int pn = 0; pn < 8; ++pn) {
+          dxa[pn][0] *= ua;
+          dxa[pn][1] *= ua;
+          dxa[pn][2] *= ub;
+          dxa[pn][3] *= ub;
+        }
+        // the row blocks i >= j: B C^T and x g^T (M^T and Q^T), then
+        // M^T g into dx and Q^T C into dB
+        const float aja = acum[ra], ajb = acum[rb];
+        const float dja = dts[ra], djb = dts[rb];
+        float cola = 0.f, colb = 0.f;  // sum_i dM M: -da_cum[j]
+        float dta = 0.f, dtb2 = 0.f;   // sum_i dM C B^T L: ddt[j]
+        for (int ib = warp; ib < tiles; ++ib) {
+          const int i0 = 16 * ib;
+          float bct[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          float xg[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          for (int k0 = 0; k0 < N8; k0 += 8) {
+            Tf32 a[4];
+            frag_rows<kRowW>(bs, r0, k0, a);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              Tf32 bb[2];
+              frag_bt<kRowW>(cs, i0 + 8 * nt, k0, SwzIn{}, bb);
+              mma_3xtf32(bct[nt], a, bb);
+            }
+          }
+          for (int k0 = 0; k0 < P8; k0 += 8) {
+            Tf32 a[4];
+            frag_rows<kXW>(xs, r0, k0, a);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              Tf32 bb[2];
+              frag_bt<kXW>(gs, i0 + 8 * nt, k0, SwzIn{}, bb);
+              mma_3xtf32(xg[nt], a, bb);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            Tf32 ma[4], qa[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = e < 2 ? ra : rb;
+              const int i = i0 + 8 * nt + 2 * t + (e & 1);
+              float m = 0.f, q = 0.f;
+              if (i >= j && i < s) {
+                const float lm = expf(acum[i] - (e < 2 ? aja : ajb));
+                const float kk = bct[nt][e] * lm;
+                const float dtj = e < 2 ? dja : djb;
+                m = kk * dtj;
+                q = xg[nt][e] * lm * dtj;
+                // dM M off the diagonal, as in pass R
+                const float tm = i > j ? xg[nt][e] * m : 0.f;
+                if (e < 2) {
+                  cola += tm;
+                  dta = fmaf(xg[nt][e], kk, dta);
+                } else {
+                  colb += tm;
+                  dtb2 = fmaf(xg[nt][e], kk, dtb2);
+                }
+              }
+              ma[a_slot(e)] = tf32_fast(m);
+              qa[a_slot(e)] = tf32_fast(q);
+            }
+#pragma unroll
+            for (int pn = 0; pn < 8; ++pn) {
+              if (8 * pn >= P8) break;
+              Tf32 bb[2];
+              frag_b_perm<kXW>(gs, i0 + 8 * nt, 8 * pn, bb);
+              mma_3xtf32(dxa[pn], ma, bb);
+            }
+#pragma unroll
+            for (int nn = 0; nn < 16; ++nn) {
+              if (8 * nn >= N8) break;
+              Tf32 bb[2];
+              frag_b_perm<kRowW>(cs, i0 + 8 * nt, 8 * nn, bb);
+              mma_3xtf32(dba[nn], qa, bb);
+            }
+          }
+        }
+        // dx = that + D g in x's type; dB per head in f32
+        T* dxr = dxb + l0 * sd.dx[2];
+#pragma unroll
+        for (int pn = 0; pn < 8; ++pn) {
+          if (8 * pn >= P8) break;
+          const int p = 8 * pn + 2 * t;
+          const int col = p ^ (g << 2);
+          const float2 ga = ld2(gs + ra * kXW + col);
+          const float2 gb = ld2(gs + rb * kXW + col);
+          if (ra < s) {
+            T* o = dxr + ra * sd.dx[2];
+            if (p < P) o[p] = from_f32<T>(fmaf(Dv, ga.x, dxa[pn][0]));
+            if (p + 1 < P) o[p + 1] = from_f32<T>(fmaf(Dv, ga.y, dxa[pn][1]));
+          }
+          if (rb < s) {
+            T* o = dxr + rb * sd.dx[2];
+            if (p < P) o[p] = from_f32<T>(fmaf(Dv, gb.x, dxa[pn][2]));
+            if (p + 1 < P) o[p + 1] = from_f32<T>(fmaf(Dv, gb.y, dxa[pn][3]));
+          }
+        }
+        float* dbr = dbp + (bh * L + l0) * N;
+#pragma unroll
+        for (int nn = 0; nn < 16; ++nn) {
+          if (8 * nn >= N8) break;
+          const int n = 8 * nn + 2 * t;
+          if (ra < s)
+            store2(dbr + (long long)ra * N, n, N, dba[nn][0], dba[nn][1]);
+          if (rb < s)
+            store2(dbr + (long long)rb * N, n, N, dba[nn][2], dba[nn][3]);
+        }
+        // ---- pass R: dC_i += sum_{j <= i} Q[i, j] B_j, Q = dM (.) L (.) dt
+        // from C B^T and dM = g x^T over the column blocks j <= i
+        float dc[16][4];
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dc[n][e] = 0.f;
+        const float aa = acum[ra], ab = acum[rb];
+        for (int jb = 0; jb <= warp; ++jb) {
+          const int j0 = 16 * jb;
+          float cbt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          float dm[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          for (int k0 = 0; k0 < N8; k0 += 8) {
+            Tf32 a[4];
+            frag_rows<kRowW>(cs, r0, k0, a);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              Tf32 bb[2];
+              frag_bt<kRowW>(bs, j0 + 8 * nt, k0, SwzIn{}, bb);
+              mma_3xtf32(cbt[nt], a, bb);
+            }
+          }
+          for (int k0 = 0; k0 < P8; k0 += 8) {
+            Tf32 a[4];
+            frag_rows<kXW>(gs, r0, k0, a);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              Tf32 bb[2];
+              frag_bt<kXW>(xs, j0 + 8 * nt, k0, SwzIn{}, bb);
+              mma_3xtf32(dm[nt], a, bb);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            Tf32 qa[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e < 2 ? ra : rb;
+              const int j = j0 + 8 * nt + 2 * t + (e & 1);
+              float q = 0.f;
+              if (j <= i && i < s) {
+                const float lm = expf((e < 2 ? aa : ab) - acum[j]);
+                const float m = cbt[nt][e] * lm * dts[j];
+                q = dm[nt][e] * lm * dts[j];
+                // dM M off the diagonal (on it, the row sum here and the
+                // column sum of pass C cancel)
+                const float tm = j < i ? dm[nt][e] * m : 0.f;
+                if (e < 2) {
+                  rowa += tm;
+                } else {
+                  rowb += tm;
+                }
+              }
+              qa[a_slot(e)] = tf32_fast(q);
+            }
+#pragma unroll
+            for (int nn = 0; nn < 16; ++nn) {
+              if (8 * nn >= N8) break;
+              Tf32 bb[2];
+              frag_b_perm<kRowW>(bs, j0 + 8 * nt, 8 * nn, bb);
+              mma_3xtf32(dc[nn], qa, bb);
+            }
+          }
+        }
+        float* dcr = dcp + (bh * L + l0) * N;
+#pragma unroll
+        for (int nn = 0; nn < 16; ++nn) {
+          if (8 * nn >= N8) break;
+          const int n = 8 * nn + 2 * t;
+          if (ra < s)
+            add2(dcr + (long long)ra * N, n, N, dc[nn][0], dc[nn][1]);
+          if (rb < s)
+            add2(dcr + (long long)rb * N, n, N, dc[nn][2], dc[nn][3]);
+        }
+        // da_cum and the direct ddt of rows ra, rb (u_j = exp(a_sum -
+        // a_cum_j) dt_j: da_cum[j] -= du_j u_j, da_cum[-1] += the same,
+        // ddt[j] += du_j exp(a_sum - a_cum_j))
+        const float alast = acum[s - 1];
+        const float dac_a = quad_sum(rowa) - quad_sum(cola) - dua * ua;
+        const float dac_b = quad_sum(rowb) - quad_sum(colb) - dub * ub;
+        const float ddt_a = quad_sum(dta) + dua * expf(alast - aja);
+        const float ddt_b = quad_sum(dtb2) + dub * expf(alast - ajb);
+        float lw = t == 0 ? fmaf(dua, ua, dub * ub) : 0.f;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) lw += __shfl_xor_sync(kFull, lw, o);
+        __syncwarp();  // this warp's reads of its rows' u are done
+        if (t == 0) {
+          ev[ra] = dac_a;
+          ev[rb] = dac_b;
+          uv[ra] = ddt_a;
+          uv[rb] = ddt_b;
+        }
+        if (lane == 0) lastw[warp] = lw;
+      } else if (lane == 0) {
+        lastw[warp] = 0.f;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        // da_cum[-1] += e_last <dS1, S0> + sum_j du_j u_j; a_cum[i] =
+        // sum_{k <= i} dt_k A: da_k = sum_{i >= k} da_cum[i]
+        float extra = *decay_s * dot;
+        for (int k = 0; k < kThreads / 32; ++k) extra += lastw[k];
+        float run = extra, dA = 0.f;
+        for (int k = s - 1; k >= 0; --k) {
+          run += ev[k];
+          ddtb[(l0 + k) * sd.ddt[2]] = uv[k] + run * Av;
+          dA = fmaf(run, dts[k], dA);
+        }
+        dap[bhc] = dA;
+        ddp[bhc] = dD;
+      }
+      __syncthreads();  // before the next window's copies land
+    }
+  }
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* dt, const void* A, const void* Bm,
                const void* Cm, const void* D, const void* dy,
-               const void* states, void* dsend, void* dx, void* ddt,
-               void* dbp, void* dcp, void* dap, void* ddp, const Strides& sd,
-               int B, int H, int L, int P, int N, int s,
-               cudaStream_t stream) {
-  const int nc = L / s;
-  const size_t smem1 = sizeof(float) * ((size_t)s * (P + 1) +
-                                        (size_t)s * (N + 1) + 3 * (size_t)s);
+               const void* states, void* dx, void* ddt, void* dbp, void* dcp,
+               void* dap, void* ddp, const Strides& sd, int B, int H, int L,
+               int P, int N, int s, cudaStream_t stream) {
+  auto kernel = ssd_bwd_tf32_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_bwd_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e != cudaSuccess) return (int)e;
-  ssd_bwd_state_kernel<T><<<dim3(H, B), kThreads, smem1, stream>>>(
-      static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const T*>(Cm), static_cast<const T*>(dy),
-      static_cast<float*>(dsend), sd, H, L, P, N, s);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem2 = chunk_smem(P, N, s);
-  e = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem2);
-  if (e != cudaSuccess) return (int)e;
-  ssd_bwd_chunk_kernel<T><<<dim3(nc, H, B), kThreads, smem2, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
+  const int CL = std::min(L / s, kMaxCluster);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL, H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(D),
       static_cast<const T*>(dy), static_cast<const float*>(states),
-      static_cast<const float*>(dsend), static_cast<T*>(dx),
-      static_cast<float*>(ddt), static_cast<float*>(dbp),
+      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(dbp),
       static_cast<float*>(dcp), static_cast<float*>(dap),
       static_cast<float*>(ddp), sd, H, L, P, N, s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -597,9 +832,10 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* Bm,
 // N) in one type (bf16 when bf16 != 0, else f32); dt, ddt (B, H, L) and
 // A/D (B, H) f32; all through strides[23] (ssd::Strides, the y entries
 // being dy's).  states: the forward's (B, H, L / s, P, N) f32 chunk-start
-// states; dsend: scratch of the same shape.  Outputs, f32 and contiguous:
-// dbp, dcp (B, H, L, N) per-head partials of dBm, dCm; dap, ddp (B, H,
-// L / s) per-chunk partials of dA, dD.
+// states.  dsend is not read or written (the dS chain stays on chip; NULL
+// is fine).  Outputs, f32 and contiguous: dbp, dcp (B, H, L, N) per-head
+// partials of dBm, dCm; dap, ddp (B, H, L / s) per-chunk partials of dA,
+// dD.  Requires L % s == 0, s <= 128, P <= 64, N <= 128.
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    const void* A, const void* Bm,
                                    const void* Cm, const void* D,
@@ -609,13 +845,17 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    const long long* strides, int B, int H,
                                    int L, int P, int N, int s, int bf16,
                                    void* stream) {
+  (void)dsend;
   if (B == 0 || H == 0 || L == 0) return 0;
+  if (s < 1 || s > kMaxS || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
+      L % s)
+    return (int)cudaErrorInvalidValue;
   const Strides sd = strides_from(strides);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bwd<__nv_bfloat16>(x, dt, A, Bm, Cm, D, dy, states,
-                                          dsend, dx, ddt, dbp, dcp, dap, ddp,
-                                          sd, B, H, L, P, N, s, st)
-              : launch_bwd<float>(x, dt, A, Bm, Cm, D, dy, states, dsend, dx,
-                                  ddt, dbp, dcp, dap, ddp, sd, B, H, L, P, N,
-                                  s, st);
+                                          dx, ddt, dbp, dcp, dap, ddp, sd, B,
+                                          H, L, P, N, s, st)
+              : launch_bwd<float>(x, dt, A, Bm, Cm, D, dy, states, dx, ddt,
+                                  dbp, dcp, dap, ddp, sd, B, H, L, P, N, s,
+                                  st);
 }

@@ -12,9 +12,11 @@ of the JAX package's ``kernels/ssd_scan.py``: one block per (batch row,
 head, chunk), the chunks of a row in thread-block clusters that pass the
 carried state on in distributed shared memory, the products on the
 tensor cores (bf16 with f32 operands as bf16 hi/lo pairs; f32 in
-3xTF32).  The backward kernels are ``csrc/ssd_scan_bwd.cu`` (the JAX
+3xTF32).  The backward kernel is ``csrc/ssd_scan_bwd.cu`` (the JAX
 package has none: it trains through ``ssd_chunked``, which XLA
-differentiates) and read the forward's chunk-start states.
+differentiates): the same grid and clusters, the gradient of the carried
+state passed back through the chunks in distributed shared memory from
+the forward's saved chunk-start states, the products in 3xTF32.
 :class:`SSDScan` ties the two into autograd.
 
 Layouts (the TPU kernel's):
@@ -28,8 +30,7 @@ merge into one sequence axis, with a unit last stride (the model's
 and N <= 128.
 
 Launch counters: ``ssd_scan_bhcsp.launches`` and ``ssd_scan_bwd.launches``
-(one each per call; the forward's call is one cluster launch, the
-backward's two kernel launches).
+(one each per call, each call one cluster launch).
 """
 from __future__ import annotations
 
@@ -162,7 +163,7 @@ def ssd_scan_bhcsp(x, dt, A, Bm, Cm, D, *, save_states: bool = False):
 
 
 def ssd_scan_bwd(x, dt, A, Bm, Cm, D, states, dy):
-    """Launch the backward kernels on the tensors' card: (dx in x's type
+    """Launch the backward kernel on the tensors' card: (dx in x's type
     and layout, ddt f32, dA (B, H), dBm and dCm in Bm's type, dD (B, H)),
     from the forward's chunk-start ``states`` and the output gradient
     ``dy``.  dBm and dCm are per-head partials summed over the heads by
@@ -182,7 +183,6 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, states, dy):
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
-    dsend = torch.empty((B, H, nc, P, N), **f32)
     dbp = torch.empty((B, H, nc * s, N), **f32)
     dcp = torch.empty((B, H, nc * s, N), **f32)
     dap = torch.empty((B, H, nc), **f32)
@@ -190,7 +190,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, states, dy):
     err = _build.library().ssd_scan_bwd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), D.data_ptr(), dy.data_ptr(), states.data_ptr(),
-        dsend.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dbp.data_ptr(),
+        None, dx.data_ptr(), ddt.data_ptr(), dbp.data_ptr(),
         dcp.data_ptr(), dap.data_ptr(), ddp.data_ptr(),
         _strides(x, dt, A, D, Bm, Cm, dy, dx, ddt), B, H, nc * s, P, N, s,
         _TYPES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
@@ -206,7 +206,7 @@ ssd_scan_bwd.launches = 0
 
 
 class SSDScan(torch.autograd.Function):
-    """The forward kernel with the backward kernels as its gradient.  The
+    """The forward kernel with the backward kernel as its gradient.  The
     chunk-start states are saved only when ``save`` is true (a caller
     under ``torch.no_grad`` passes False)."""
 

@@ -725,7 +725,11 @@ SSD_CASES = [  # B, L, H, P, N, chunk
     (16, 512, 32, 64, 128, 128),  # mamba2-370m recompute
     (16, 512, 80, 64, 64, 128),   # zamba2-2.7b recompute
     (2, 2048, 4, 64, 128, 128),   # 16 chunks: two windows of a cluster
+    (2, 1280, 4, 64, 128, 128),   # 10 chunks: the last window ragged
+    (1, 1152, 6, 64, 64, 128),    # 9 chunks: a last window of one chunk
 ]
+# the cases whose chunks take more than one window of a cluster
+SSD_WINDOW_CASES = [c for c in SSD_CASES if c[1] // c[5] > 8]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -775,13 +779,21 @@ def test_ssd_scan_bwd_kernel_matches_plain_autograd(dev, B, L, H, P, N,
         assert _rel(g, w) <= SSD_GRAD_RTOL[dtype], (name, _rel(g, w))
 
 
-def test_ssd_scan_bwd_kernel_is_repeatable_bitwise(dev):
-    args = _ssd_inputs(5, 2, 512, 8, 64, 128, torch.float32, dev)
-    dy = torch.ones((2, 512, 8, 64), device=dev)
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dtype", [
+    (2, 512, 8, 64, 128, 128, torch.float32)] + [
+    (*case, dtype) for case in SSD_WINDOW_CASES
+    for dtype in (torch.float32, torch.bfloat16)])
+def test_ssd_scan_bwd_kernel_is_repeatable_bitwise(dev, B, L, H, P, N, chunk,
+                                                   dtype):
+    """The same bits on every run; the window cases take the backward's
+    reverse chain over several windows of a cluster, the last one ragged
+    or of one chunk."""
+    args = _ssd_inputs(5, B, L, H, P, N, dtype, dev)
+    dy = torch.ones((B, L, H, P), device=dev, dtype=dtype)
     runs = []
     for _ in range(2):
         leaves = [t.clone().requires_grad_() for t in args]
-        runs.append(torch.autograd.grad(ops.ssd_scan(*leaves, 128), leaves,
+        runs.append(torch.autograd.grad(ops.ssd_scan(*leaves, chunk), leaves,
                                         dy))
     for a, b in zip(*runs):
         assert torch.equal(a, b)

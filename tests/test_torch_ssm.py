@@ -288,6 +288,102 @@ def test_ssd_kernel_order_matches_pallas(arch, P, N, dtype):
            tssd.ssd_scan_plain(*(t.float() for t in tin)), SSD_REL["float32"])
 
 
+def _ssd_bwd_kernel_order(x, dt, A, Bm, Cm, D, dy, *, cluster: int = 8):
+    """K6's gradient in the card kernel's order of work, TPU layout in,
+    plain f32 (csrc/ssd_scan_bwd.cu): the forward's chunk-start states S0;
+    every chunk's local term sum_i e_i dy_i (x) C_i of dS0; the reverse
+    chain dS1_{c-1} = exp(a_sum_c) dS1_c + local_c over windows of
+    ``cluster`` chunks from the last window to the first, the running dS1
+    carried from one window to the one before; then each chunk's
+    gradients from S0 and dS1.  Returns (dx, ddt, dA, dBm, dCm, dD) with
+    dBm and dCm summed over the heads and dA, dD over the chunks."""
+    B, H, nc, s, P = x.shape
+    a_cum = torch.cumsum((dt * A[..., None, None]).double(), dim=-1).float()
+    e = torch.exp(a_cum)
+    u = torch.exp(a_cum[..., -1:] - a_cum) * dt
+    decay = torch.exp(a_cum[..., -1])  # (B, H, nc)
+    Bh, Ch = Bm[:, None], Cm[:, None]  # shared by the heads
+    contrib = (x * u[..., None]).transpose(-1, -2) @ Bh  # (B, H, nc, P, N)
+    S0 = torch.empty_like(contrib)
+    run = torch.zeros_like(contrib[:, :, 0])
+    for c in range(nc):
+        S0[:, :, c] = run
+        run = run * decay[:, :, c, None, None] + contrib[:, :, c]
+    local = (dy * e[..., None]).transpose(-1, -2) @ Ch
+    dS1 = torch.empty_like(local)
+    run = torch.zeros_like(local[:, :, 0])
+    for w0 in reversed(range(0, nc, cluster)):  # the windows, one cluster each
+        for c in reversed(range(w0, min(nc, w0 + cluster))):
+            dS1[:, :, c] = run
+            run = run * decay[:, :, c, None, None] + local[:, :, c]
+    tri = torch.ones((s, s), dtype=torch.bool).tril()
+    Lm = torch.exp(torch.where(tri, a_cum[..., :, None] - a_cum[..., None, :],
+                               -1e30))
+    CB = Ch @ Bh.transpose(-1, -2)  # (B, 1, nc, i, j)
+    dM = dy @ x.transpose(-1, -2)   # (B, H, nc, i, j)
+    M = CB * Lm * dt[..., None, :]
+    Q = dM * Lm * dt[..., None, :]
+    dx = (M.transpose(-1, -2) @ dy + u[..., None] * (Bh @ dS1.transpose(-1, -2))
+          + D[..., None, None, None] * dy)
+    dC_state = e[..., None] * (dy @ S0)
+    dC = Q @ Bh + dC_state
+    xd = x @ dS1
+    dB = Q.transpose(-1, -2) @ Ch + u[..., None] * xd
+    du = (xd * Bh).sum(-1)
+    # dM M off the diagonal: on it the row and column terms cancel, and the
+    # kernel leaves both out
+    T = dM * M * torch.ones((s, s), dtype=torch.bool).tril(-1)
+    da_cum = T.sum(-1) - T.sum(-2) + (dC_state * Ch).sum(-1) - du * u
+    da_cum[..., -1] += (du * u).sum(-1) + decay * (dS1 * S0).sum((-1, -2))
+    ddt = (dM * CB * Lm).sum(-2) + du * torch.exp(a_cum[..., -1:] - a_cum)
+    tail = torch.flip(torch.cumsum(torch.flip(da_cum, [-1]), -1), [-1])
+    return (dx, ddt + tail * A[..., None, None], (tail * dt).sum((-1, -2)),
+            dB.sum(1), dC.sum(1), (dy * x).sum((-1, -2, -3)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ssd_grad(chunk: int):
+    """``jax.grad`` of ``sum(ssd_chunked(...)[0] * dy)`` in all six inputs."""
+    def loss(x, dt, A, Bm, Cm, D, dy):
+        return jnp.sum(jssm.ssd_chunked(x, dt, A, Bm, Cm, D, chunk)[0] * dy)
+    return jax.jit(jax.grad(loss, argnums=tuple(range(6))))
+
+
+@pytest.mark.parametrize("L", [160, 144])
+@pytest.mark.parametrize("arch,P,N", [(MAMBA, 64, 128), (ZAMBA, 64, 64)])
+def test_ssd_bwd_kernel_order_matches_jax_grad(arch, P, N, L):
+    """The card backward's order of work (local terms, the reverse chain
+    over windows of the chunk cluster, each chunk's gradients from S0 and
+    dS1) at the models' head shapes, in chunks of 16: L = 160 leaves a
+    last window of two chunks, L = 144 one of a single chunk.  Every
+    gradient in f32 within 1e-4 of the largest |grad| of ``jax.grad`` of
+    ``ssd_chunked``.  The output gradient is y itself (that of |y|^2 / 2):
+    with a random one, dA sums ~300 terms of both signs per head to a
+    total that can be a tenth of them, where f32 (JAX's as well) leaves
+    errors of ~1e-5 of the terms; with dy = y every gradient is a
+    coherent sum and the two sides agree within a tenth of the bar."""
+    B, H, chunk = 2, 2, 16
+    x, dt, A, Bm, Cm, D = _ssd_np(P + N + L, B, L, H, P, N, model_decay=True)
+    # dt scaled so that a chunk decays by exp(a_sum) of 0.02 .. 0.9: every
+    # term of the chain between chunks weighs in the gradients
+    ins = (x, (dt / 64).astype(np.float32), A, Bm, Cm, D)
+    dy, _ = jssm.ssd_chunked(*map(jnp.asarray, ins), chunk)
+    dy = np.asarray(dy)
+    want = _jax_ssd_grad(chunk)(*map(jnp.asarray, ins), jnp.asarray(dy))
+    nc = L // chunk
+    k = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+         _to_kernel_layout(*ins, chunk)]
+    tdy = torch.from_numpy(dy.copy()).reshape(B, nc, chunk, H, P).permute(
+        0, 3, 1, 2, 4)
+    dx, ddt, dA, dBm, dCm, dD = _ssd_bwd_kernel_order(*k, tdy)
+    got = (dx.permute(0, 2, 3, 1, 4).reshape(B, L, H, P),
+           ddt.permute(0, 2, 3, 1).reshape(B, L, H), dA.sum(0),
+           dBm.reshape(B, L, N), dCm.reshape(B, L, N), dD.sum(0))
+    for name, g, w in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want):
+        assert g.shape == w.shape, name
+        _close(g, w, 1e-4)
+
+
 @pytest.mark.parametrize("L,chunk,model_decay", [(64, 16, False),
                                                  (96, 32, True)])
 def test_ssd_scan_grads_match_jax_ssd_chunked(L, chunk, model_decay):
