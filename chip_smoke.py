@@ -49,7 +49,17 @@ random weights:
   8. train      the model at full width, depth cut where needed, f32 params
                 and AdamW: three GRPO steps of 4 x 1024 tokens in two
                 microbatches, step time, peak memory and kernel launches
-                per step.
+                per step;
+and last the runtime end to end:
+  9. grpo       ``GRPORunner`` on yi-9b at full width cut to 8 layers (f32
+                params and AdamW in the actor, copies synced into the
+                rollout and inference workers): profile, plan and three
+                RL iterations of 16 rollouts of 8 + 64 tokens, once
+                collocated and once as the scheduler plans it ("auto"):
+                the profiled cost models, the plan, each iteration's wall
+                and stage times, launches per iteration gated exactly,
+                the weight sync's seconds and bytes, the actor's offload
+                against its state bytes, peak memory.
 
 After the phases one line a kernel gives its time against its bound.
 The line before the last is the card's ``nvidia-smi`` name and power
@@ -60,6 +70,7 @@ without TF32 throughout.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -1687,6 +1698,231 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
                   FLASH_KERNELS + SSD_KERNELS)
 
 
+GRPO_LAYERS = 8  # of yi-9b's 48: the train phase's cut (f32 + AdamW)
+
+
+def grpo_launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sampling as ks
+
+    return (pa.paged_attention_bhd.launches, ks.fused_sample_bv.launches,
+            fa.flash_attention_bhsd.launches, fa.flash_attention_bwd.launches)
+
+
+def zero_grpo_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sampling as ks
+
+    pa.paged_attention_bhd.launches = 0
+    ks.fused_sample_bv.launches = 0
+    fa.flash_attention_bhsd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+
+
+def check_sync_copies(runner) -> None:
+    """After a sync the rollout's and the inference worker's params equal
+    the actor's bit for bit in storage of their own, and the actor's next
+    in-place train step leaves them alone.  (A function of its own, so no
+    reference to the actor's tensors outlives it.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.utils.treeutil import pytree_leaves
+
+    rl = runner.rl
+    runner._sync_weights()
+    actor = pytree_leaves(runner.actor.params())
+    copies = {n: pytree_leaves(runner.workers[n].get_state("params"))
+              for n in ("rollout", "inference")}
+    for n, ls in copies.items():
+        assert all(torch.equal(a, c) for a, c in zip(actor, ls)), n
+        assert all(a.data_ptr() != c.data_ptr()
+                   for a, c in zip(actor, ls)), n
+    kept = [c[..., :8].clone() for c in copies["rollout"]]
+    shape = (rl.batch_size, rl.prompt_len + rl.max_new_tokens)
+    runner.actor.train({"tokens": np.full(shape, 7, np.int64),
+                        "old_logprobs": np.zeros(shape, np.float32),
+                        "advantages": np.ones(shape, np.float32),
+                        "loss_mask": np.ones(shape, np.float32)})
+    assert not all(torch.equal(a[..., :8], k) for a, k in zip(actor, kept)), \
+        "grpo: the extra train step changed nothing"
+    for n, ls in copies.items():
+        assert all(torch.equal(c[..., :8], k) for c, k in zip(ls, kept)), n
+
+
+def grpo(results: dict, mode: str) -> None:
+    """One RL run end to end through the runtime: ``GRPORunner`` on yi-9b
+    at full width cut to 8 layers, f32 params with AdamW in the actor,
+    synced as they are (copies) into the rollout's paged engine and the
+    inference worker; profile -> plan -> 3 iterations of rollout (K1, K2),
+    logprob recompute (K3), reward and a train step (K3 and its
+    backward).  Gates: every worker on the card; launches per iteration
+    exact (K1 = layers x decode batches, K2 = decode batches, K3 = layers
+    per recompute pass and per train forward, its backward = layers per
+    train step; a wrapper given a CUDA tensor launches its kernel or
+    raises, so exact counts also show that no plain version ran);
+    finite metrics and changed params; the synced weights equal to the actor's bit for
+    bit after a sync and left alone by the next train step; the
+    profile's offload of the actor frees >= 90 % of its state bytes on
+    the card; in collocated mode the plan's first switch cost is the
+    profiled on/offload seconds; after the teardown the run holds
+    nothing on the card.
+    (The async horizon, ``async_depth=1``, runs in the CPU tests: its run
+    here would not fit the phase's time.)"""
+    import torch
+
+    from repro_torch.comm.primitives import reset_router
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import Temporal
+    from repro_torch.rl import GRPOConfig, GRPORunner
+    from repro_torch.train import AdamWConfig, TrainHParams
+    from repro_torch.utils.treeutil import pytree_leaves
+
+    L = GRPO_LAYERS
+    tag = f"grpo[{mode}]"
+    reset_router()
+    cfg = get_config("yi-9b").replace(num_layers=L)
+    rl = GRPOConfig(batch_size=16, group_size=4, prompt_len=8,
+                    max_new_tokens=64, temperature=1.0, iterations=3,
+                    profile_batches=(8, 16), mode=mode, seed=SEED)
+    # the entropy bonus keeps the gradient alive while every reward of a
+    # group is equal (random weights rarely answer right)
+    hp = TrainHParams(optimizer=AdamWConfig(lr=1e-5), entropy_coef=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runner = GRPORunner(cfg, rl, hp)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert all(w.device.type == "cuda" for w in runner.workers.values()), \
+        {n: w.device for n, w in runner.workers.items()}
+    assert runner.rollout.engine.cache.k.is_cuda
+    probe = [t[..., :8].clone() if t.dim() else t.clone()
+             for t in pytree_leaves(runner.actor.params())]
+    eng = runner.rollout.engine
+    # the profile's own offload of the actor (measure_onoffload), against
+    # its state bytes: an offload frees the card only when nothing else
+    # holds the tensors
+    freed = []
+    actor_offload = runner.actor.offload
+
+    def offload(keys=None):
+        torch.cuda.synchronize()
+        m0, sb = torch.cuda.memory_allocated(), runner.actor.state_bytes()
+        moved = actor_offload(keys)
+        freed.append((m0 - torch.cuda.memory_allocated(),
+                      sb - runner.actor.state_bytes()))
+        return moved
+
+    runner.actor.offload = offload
+    t0 = time.perf_counter()
+    runner.profile()
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t0
+    # the wrapper and the bound method it calls hold the actor: left
+    # in place they would keep its state on the card after the run
+    del runner.actor.offload, offload, actor_offload
+    runner.plan_execution()
+    priced = {n: (cm.onload_time, cm.offload_time, cm.sync_time)
+              for n, cm in runner.controller.profiles.items()}
+    log(f"{tag}: yi-9b full width cut to {L} of 48 layers, f32 + AdamW "
+        f"(state {runner.actor.state_bytes() / 1e9:.2f} GB), batch "
+        f"{rl.batch_size} = {rl.batch_size // rl.group_size} prompts x "
+        f"{rl.group_size}, {rl.prompt_len} + {rl.max_new_tokens} tokens,"
+        f" T {rl.temperature}; runner built in {build_s:.1f} s, "
+        f"profiled in {profile_s:.1f} s")
+    for name, cm in runner.controller.profiles.items():
+        log(f"{tag}: profile {name}: base_time={cm.base_time:.6g} s "
+            f"slope_time={cm.slope_time:.6g} s/item "
+            f"onload_time={cm.onload_time:.6g} s "
+            f"offload_time={cm.offload_time:.6g} s "
+            f"sync_time={cm.sync_time:.6g} s "
+            f"tail_factor={cm.tail_factor:.6g} "
+            f"base_mem={cm.base_mem / 1e9:.3f} GB")
+    for line in runner.plan.pretty().splitlines():
+        log(f"{tag}: plan: {line}")
+    totals = [0, 0, 0, 0]
+    for it in range(rl.iterations):
+        zero_grpo_launches()
+        d0 = eng.decode_batches
+        s0 = runner.sync_stats["seconds"]
+        st = runner.run_iteration(it)
+        torch.cuda.synchronize()
+        k = grpo_launches()
+        db = eng.decode_batches - d0
+        calls = {}
+        stage_s = {}
+        for name, a, b, _ in runner.controller.last_timeline:
+            calls[name] = calls.get(name, 0) + 1
+            stage_s[name] = stage_s.get(name, 0.0) + (b - a)
+        assert k[0] == L * db and k[1] == db, (k, db)
+        assert k[2] == L * (calls["inference"] + calls["actor"]), \
+            (k, calls)
+        assert k[3] == L * calls["actor"], (k, calls)
+        m = st.metrics
+        assert m and all(math.isfinite(v) for v in m.values()), m
+        totals = [a + b for a, b in zip(totals, k)]
+        log(f"{tag}: iteration {it}: wall {st.wall_time:.3f} s "
+            f"(sync {runner.sync_stats['seconds'] - s0:.4f} s); stages "
+            + ", ".join(f"{n} {stage_s[n]:.3f} s x{calls[n]}"
+                        for n in stage_s)
+            + f"; launches K1={k[0]} K2={k[1]} K3={k[2]} K3bwd={k[3]} "
+            f"({db} decode batches); acc={st.accuracy:.3f} "
+            f"reward={st.mean_reward:+.3f} loss={m['loss']:+.5g} "
+            f"entropy={m.get('entropy', float('nan')):.5g} "
+            f"grad_norm={m.get('grad_norm', float('nan')):.5g}")
+    assert not all(torch.equal(a, b[..., :8]) for a, b in
+                   zip(probe, pytree_leaves(runner.actor.params()))), \
+        "grpo: the actor's params did not change"
+    check_sync_copies(runner)
+    sync = runner.sync_stats
+    log(f"{tag}: weight sync {sync['syncs']} x: {sync['seconds']:.4f} s, "
+        f"{sync['bytes'] / 1e9:.3f} GB in all "
+        f"({sync['bytes'] / max(sync['seconds'], 1e-12) / 1e9:.1f} GB/s); "
+        f"after a sync rollout and inference equal the actor bit for bit "
+        f"in other storage, and a train step leaves them alone")
+    assert freed and all(f >= 0.9 * sb > 0 for f, sb in freed), freed
+    cut = ""
+    if mode == "collocated":
+        first = runner.plan.schedule
+        assert isinstance(first, Temporal)
+        # summed as collocated_schedule sums them
+        want = priced["rollout"][1] + (priced["inference"][0]
+                                       + priced["inference"][2])
+        assert first.switch_cost == want, (first.switch_cost, want)
+        cut = (f"; the plan priced the first cut at "
+               f"{first.switch_cost:.4f} s = rollout offload "
+               f"{priced['rollout'][1]:.4f} + inference onload "
+               f"{priced['inference'][0]:.4f} + sync "
+               f"{priced['inference'][2]:.4f}")
+    log(f"{tag}: the profile's actor offload freed "
+        + ", ".join(f"{f / 1e9:.3f} GB of {sb / 1e9:.3f} GB "
+                    f"({100 * f / sb:.1f} %)" for f, sb in freed)
+        + f" in {priced['actor'][1]:.3f} s (onload "
+        f"{priced['actor'][0]:.3f} s){cut}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    accs = [s.accuracy for s in runner.stats]
+    rewards = [s.mean_reward for s in runner.stats]
+    log(f"{tag}: peak memory {peak:.2f} GB (max_memory_allocated); "
+        f"accuracy {accs}, mean reward {rewards}; launches over the run "
+        f"K1={totals[0]} K2={totals[1]} K3={totals[2]} K3bwd={totals[3]}; "
+        f"card: {card_line()}")
+    for key, n in zip(("paged_attention", "fused_sample", "flash_fwd",
+                       "flash_bwd"), totals):
+        results[key]["launches"] += n
+    runner.teardown()
+    del runner, eng, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start
+    assert left <= 2**28, f"grpo: {left / 1e9:.3f} GB outlived the run"
+    log(f"{tag}: after teardown {left / 1e6:.1f} MB more allocated than "
+        f"before the run")
+
+
 def main() -> int:
     try:
         import torch
@@ -1767,6 +2003,10 @@ def main() -> int:
             moe_f32_paths(cfg)
         train(cfg, results, train_layers)
         torch.cuda.empty_cache()
+
+    # the runtime end to end: profile -> plan -> execute on the card
+    grpo(results, "collocated")
+    grpo(results, "auto")
 
     kernels = [results[k] for k in ("paged_attention", "fused_sample",
                                     "flash_fwd", "flash_bwd",

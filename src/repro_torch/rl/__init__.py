@@ -1,0 +1,16 @@
+from repro_torch.rl.advantage import (  # noqa: F401
+    gae_advantages,
+    grpo_advantages,
+    reinforce_pp_advantages,
+    staleness_importance_weights,
+    whiten,
+)
+from repro_torch.rl.grpo_workflow import GRPOConfig, GRPORunner  # noqa: F401
+from repro_torch.rl.reward import math_reward  # noqa: F401
+from repro_torch.rl.workers import (  # noqa: F401
+    ActorWorker,
+    InferenceWorker,
+    RewardWorker,
+    RolloutWorker,
+)
+from repro_torch.rl.runner import WorkflowRunner  # noqa: F401

@@ -181,6 +181,14 @@ class PagedEngine:
                 version = base + 1
             self._pending.append((version, params))
 
+    def release_params(self) -> None:
+        """Apply any pending update (so its version tag holds) and drop
+        the engine's reference to the weights, so that offloading the
+        worker that owns them frees their memory.  The next
+        :meth:`generate` or :meth:`update_weights` supplies them again."""
+        self._apply_pending()
+        self.params = None
+
     def _apply_pending(self) -> None:
         # params/weight_version are written under the lock: update_weights
         # reads weight_version to auto-assign the next version, so an

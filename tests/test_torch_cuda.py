@@ -993,3 +993,97 @@ def test_ssm_engine_card_vs_cpu(dev, arch):
             res.append(eng.generate(params, prompts, seed=3))
         assert torch.equal(res[0].tokens, res[1].tokens)
         assert (res[0].logprobs - res[1].logprobs).abs().max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the GRPO runner: two iterations on the card against the CPU
+# ---------------------------------------------------------------------------
+def _grpo_run(device, params, lr):
+    """A reduced-yi GRPORunner from ``params``, collocated, two
+    iterations on ``device``, with an entropy bonus so that the actor
+    learns while every reward is equal (random weights rarely answer
+    right); returns (runner, per-call outputs of rollout and reward, and
+    per-call (params before, chunk) of the actor, on the CPU)."""
+    from repro_torch.comm.primitives import reset_router
+    from repro_torch.rl import GRPOConfig, GRPORunner
+    from repro_torch.train import AdamWConfig
+
+    reset_router()
+    cfg = get_config("yi-9b").reduced()
+    rl = GRPOConfig(batch_size=8, group_size=4, iterations=2,
+                    max_new_tokens=8, mode="collocated", seed=0,
+                    profile_batches=(4, 8))
+    runner = GRPORunner(cfg, rl, TrainHParams(
+        optimizer=AdamWConfig(lr=lr), entropy_coef=0.01), device=device,
+        params=tree_map(lambda t: t.to(device, copy=True), params))
+    log = {"rollout": [], "reward": [], "actor": []}
+
+    def wrap(name, fn):
+        def run(w, c):
+            if name == "actor":
+                log[name].append((
+                    [t.cpu().clone() for t in tree_leaves(w.params())],
+                    {k: np.array(v) for k, v in c.items()}))
+            out = fn(w, c)
+            if name in ("rollout", "reward"):
+                log[name].append({k: np.array(v) for k, v in out.items()
+                                  if k != "metrics"})
+            return out
+        return run
+
+    runner.task_fns = {n: wrap(n, f) for n, f in runner.task_fns.items()}
+    runner.run(verbose=False)
+    return runner, log
+
+
+def test_grpo_runner_card_vs_cpu(dev):
+    """Profile, plan and two collocated iterations on the card: every
+    worker on the card, the rollouts' tokens and the rewards the CPU's;
+    the actor's first update p1 - p0 within 1 % of the CPU's wherever the
+    gradient is clear of rounding (above 1e-3 of its tensor's largest:
+    there Adam's first step is lr * g / (|g| + eps), so a step of the
+    wrong sign or size fails), and the actor's final params scoring the
+    last rollout as the CPU's do, within the card-vs-CPU logprob
+    tolerance."""
+    lr = 1e-4
+    cfg = get_config("yi-9b").reduced()
+    params = init_model(None, cfg, torch.float32, "cpu")
+    cpu, cpu_log = _grpo_run("cpu", params, lr)
+    card, card_log = _grpo_run(dev, params, lr)
+    assert all(w.device.type == "cuda" for w in card.workers.values())
+    assert card.rollout.engine.cache.k.is_cuda
+    assert len(card_log["rollout"]) == len(cpu_log["rollout"])
+    for a, b in zip(card_log["rollout"], cpu_log["rollout"]):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+        np.testing.assert_allclose(a["logprobs"], b["logprobs"], atol=1e-3)
+    for a, b in zip(card_log["reward"], cpu_log["reward"]):
+        for k in ("rewards", "loss_mask", "advantages"):
+            np.testing.assert_array_equal(a[k], b[k])
+    # the first update, from the same p0 on the same chunk
+    assert len(card_log["actor"]) == len(cpu_log["actor"]) >= 2
+    p0, chunk = cpu_log["actor"][0]
+    p1_card, p1_cpu = card_log["actor"][1][0], cpu_log["actor"][1][0]
+    live = tree_map(lambda t: t.clone().requires_grad_(), params)
+    batch = {"tokens": torch.tensor(chunk["tokens"], dtype=torch.long)}
+    for k in ("old_logprobs", "advantages", "loss_mask"):
+        batch[k] = torch.tensor(chunk[k], dtype=torch.float32)
+    loss, _ = policy_loss(cfg, card.hp, live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    clear = total = 0
+    for a, b, p, g in zip(p1_card, p1_cpu, p0, grads):
+        sure = g.abs() > 1e-3 * g.abs().max()
+        torch.testing.assert_close((a - p)[sure], (b - p)[sure],
+                                   rtol=1e-2, atol=1e-2 * lr)
+        clear, total = clear + int(sure.sum()), total + int((g != 0).sum())
+    assert clear > 0.5 * total, (clear, total)
+    moved = max(float((a.cpu() - b).abs().max()) for a, b in
+                zip(tree_leaves(card.actor.params()), tree_leaves(params)))
+    assert moved > 0.5 * lr, moved
+    # the final params, past the last step, on the last rollout
+    last = {"tokens": cpu_log["rollout"][-1]["tokens"]}
+    lp = [r.inference.compute_logprobs(last, key="lp",
+                                       params=r.actor.params())["lp"]
+          for r in (card, cpu)]
+    np.testing.assert_allclose(lp[0], lp[1], atol=1e-3)
+    assert [s.mean_reward for s in card.stats] == \
+        [s.mean_reward for s in cpu.stats]

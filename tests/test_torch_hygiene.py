@@ -1,6 +1,8 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, the port's entry points never fall back
-to the CPU on their own, and the kernel dispatch has no fallback path."""
+neither JAX nor the JAX package, nor any third-party module the card's
+machine lacks (only torch, numpy, triton and the standard library), the
+port's entry points never fall back to the CPU on their own, and the
+kernel dispatch has no fallback path."""
 import ast
 import os
 import shutil
@@ -42,6 +44,17 @@ def _imports(path: Path):
             yield node.args[0].value
 
 
+# what the card's machine has besides the standard library (it has no JAX,
+# networkx or msgpack); scipy, einops, pytest and hypothesis are there for
+# tests, which the port's package does not import
+ALLOWED_THIRD_PARTY = ("torch", "numpy", "triton", "repro_torch")
+
+
+def _allowed(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ALLOWED_THIRD_PARTY or top in sys.stdlib_module_names
+
+
 def test_banned_pattern_tells_repro_torch_apart():
     assert _banned("repro") and _banned("repro.serve") and _banned("jax.numpy")
     assert not _banned("repro_torch") and not _banned("repro_torch.serve")
@@ -53,6 +66,20 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_allowed_pattern_knows_the_card_machines_modules():
+    assert _allowed("torch.nn") and _allowed("numpy") and _allowed("triton")
+    assert _allowed("itertools") and _allowed("concurrent.futures")
+    assert _allowed("repro_torch.core.flowgraph")
+    assert not _allowed("networkx") and not _allowed("msgpack")
+    assert not _allowed("jax") and not _allowed("scipy")
+
+
+@pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_only_torch_numpy_triton_and_stdlib(path):
+    bad = [m for m in _imports(path) if m and not _allowed(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
@@ -60,7 +87,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.moe, repro_torch.kernels.moe_gmm\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.train, repro_torch.rl.advantage\n"
-        "import repro_torch.utils.treeutil\n"
+        "import repro_torch.utils.treeutil, repro_torch.utils.logging\n"
+        "import repro_torch.core, repro_torch.comm, repro_torch.obs\n"
+        "import repro_torch.rl, repro_torch.train.data\n"
         "import repro_torch.configs as c; c.get_config('yi-9b')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
@@ -69,6 +98,29 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_runtime_entry_points_raise_without_cuda_and_no_device(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.core import Worker
+    from repro_torch.rl import GRPOConfig, GRPORunner
+    from repro_torch.rl.workers import ActorWorker, RolloutWorker
+    from repro_torch.train import TrainHParams
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("yi-9b").reduced()
+    rl = GRPOConfig(batch_size=8, group_size=4, iterations=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GRPORunner(cfg, rl)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RolloutWorker("r/0", cfg=cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ActorWorker("a/0", cfg=cfg, hp=TrainHParams())
+    w = Worker("w/0", devices=(0,))  # a worker resolves its device lazily
+    with pytest.raises(RuntimeError, match="CUDA"):
+        w.device
+    w.shutdown()
+    assert GRPORunner(cfg, rl, device="cpu").actor.device.type == "cpu"
 
 
 def test_entry_points_raise_without_cuda_and_no_device(monkeypatch):
