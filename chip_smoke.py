@@ -20,13 +20,18 @@ Phases, one line of output each (more for the kernels):
                 sampling at all four vocabularies), flash attention forward and
                 backward (checked at B=4 with a tail and a window, then
                 checked and timed at the recompute's and the train
-                microbatch's shapes, zamba2's D=80 heads and window among
-                them), the grouped expert matmul and the drop-free MoE
+                microbatch's shapes, zamba2's D=80 heads and window and
+                stablelm-12b's D=160 heads among them), the grouped
+                expert matmul and the drop-free MoE
                 decode (granite-moe's decode and prefill shapes, batch
                 invariance bitwise), the SSD chunked scan forward and
                 backward (mamba2's and zamba2's recompute and train
                 microbatch shapes, a ragged length) and the one-token SSD
-                state update (their decode shapes);
+                state update (their decode shapes); sampling also at
+                stablelm-12b's vocabulary (100352), paged attention at
+                its D=160 heads (also at the rlhf phase's decode batch)
+                and flash attention at the f32 shapes of the rlhf and
+                embodied phases;
   3. ref        reduced yi-9b, granite-moe, mamba2 and zamba2 served on the
                 card and on the CPU from the same weights: the same tokens;
   4. ref-train  the same reduced models in f32: recomputed logprobs and one
@@ -41,7 +46,10 @@ random weights:
                 (paged KV, or the state cache for SSM and hybrid): 16
                 requests, tokens/s, and the kernels' launch counters set
                 to 0 before the run and gated exactly after it;
-  6. greedy     the same requests twice at temperature 0: identical tokens;
+  6. greedy     the same requests twice at temperature 0: identical tokens
+                (the SSM and hybrid models on 4 of them, cut to 64
+                prompt tokens, with 16 new tokens: their prompts go
+                through the decode batch a token a step);
   7. recompute  16 rollouts of 448 + 64 tokens from the engine, scored by
                 ``make_prefill_step`` at full depth: tokens/s (median of
                 five passes), flash and SSD-scan launches, and the
@@ -59,7 +67,23 @@ and last the runtime end to end:
                 the profiled cost models, the plan, each iteration's wall
                 and stage times, launches per iteration gated exactly,
                 the weight sync's seconds and bytes, the actor's offload
-                against its state bytes, peak memory.
+                against its state bytes, peak memory;
+ 10. rlhf       ``RLHFRunner`` (actor, critic, reference, reward, rollout,
+                inference: the paper's PPO diamond) on stablelm-12b at
+                full width cut to 2 of 40 layers, f32: profile, plan
+                (collocated; the "auto" plan from the same profiles
+                logged) and two iterations of 16 rollouts of 8 + 32
+                tokens; launches per iteration gated exactly, the KL to
+                the reference live, actor and critic changed, the
+                reference unchanged bit for bit, the actor's and the
+                critic's offloads against their state bytes;
+ 11. embodied   ``EmbodiedPPORunner`` with the policy at stablelm-12b's
+                full width cut to 2 layers (the embodied token space):
+                64 envs, 16 cycle steps, two iterations, once forced
+                collocated and once forced hybrid; the two trajectories
+                equal, the forced realization recorded, launches per
+                iteration gated exactly (K3 per act call and train
+                forward, no K1 or K2).
 
 After the phases one line a kernel gives its time against its bound.
 The line before the last is the card's ``nvidia-smi`` name and power
@@ -127,16 +151,28 @@ def device_ms(fn, n: int = 20, key: str = "") -> float:
     """Device time of one call of ``fn``: the sum over its CUDA kernels
     (those whose name holds ``key``) under ``torch.profiler``, the mean of
     ``n`` calls after a warm-up.  A profile now and then comes back
-    without device events; it is taken again, three times at most."""
+    without device events, or with only some of them (a kernel seen a
+    fractional number of times a call: K1 once read a quarter of its
+    time so); it is taken again, three times at most."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    ms = 0.0
     for _ in range(3):
-        ms = sum(t for k, t, _ in profiled(fn, n) if key in k) * 1e3
-        if ms > 0:
+        rows = [(t, c) for k, t, c in profiled(fn, n) if key in k]
+        ms = sum(t for t, _ in rows) * 1e3
+        if rows and all(c >= 1 and abs(c - round(c)) < 1e-6
+                        for _, c in rows):
             return ms
+        if rows:
+            log(f"device_ms: a profile saw {[round(c * n) for _, c in rows]}"
+                f" launches of its kernels in {n} calls; taken again")
+    if ms > 0:
+        log(f"device_ms: no whole profile in three; {ms:.4f} ms is the "
+            "last, from an incomplete one")
+        return ms
     raise RuntimeError("the profiler saw no device time in three profiles")
 
 
@@ -217,18 +253,20 @@ def check_build(so: Path) -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_paged_attention(dtype, results: dict, heads=(32, 4, 128),
-                          arch: str = "yi-9b") -> None:
-    """K1 at ``arch``'s (H, KV, D); yi-9b's bf16 case is the JSON entry."""
+                          arch: str = "yi-9b",
+                          ctx=(0, 1, 17, 128, 333, 512, 777, 1024)) -> None:
+    """K1 at ``arch``'s (H, KV, D) over 8 rows of contexts ``ctx`` (the
+    first empty) in 64-page tables of 16 tokens, the serving engines'
+    1024-token cap; yi-9b's bf16 case is the JSON entry."""
     import torch
 
     from repro_torch.kernels import paged_attention as pa
 
-    (H, KV, D), B, page, nb = heads, 8, 16, 64
+    (H, KV, D), B, page, nb = heads, len(ctx), 16, 64
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
     P = B * nb + 1
-    lens = torch.tensor([0, 1, 17, 128, 333, 512, 777, 1024],
-                        dtype=torch.int32, device=dev)
+    lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
     perm = torch.randperm(P - 1, generator=g, device=dev) + 1
     tables = perm[:B * nb].reshape(B, nb).to(torch.int32)
     q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
@@ -1018,6 +1056,81 @@ def check_flash_zamba2() -> None:
         torch.cuda.empty_cache()
 
 
+STABLELM_HEADS = (32, 8, 160)  # stablelm-12b's (H, KV, D): d 5120 / 32
+# contexts of the rlhf phase's decode batch (one slot idle)
+RLHF_DECODE_CTX = (0, 9, 12, 17, 24, 31, 39, 40)
+
+
+def check_flash_stablelm(results: dict) -> None:
+    """K3 at stablelm-12b's heads (32 / 8 KV of D 160: three 64-column TMA
+    boxes, the last half fill, and P V as two products), causal: the
+    recompute's forward (16 x 512, bf16) and the train microbatch's
+    forward and backward (2 x 1024, f32), against the plain versions,
+    timed beside the plain forward and ``scaled_dot_product_attention``
+    with the bound.  Its errors count in K3's entries (the largest over
+    the shapes checked)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    heads = STABLELM_HEADS
+    for dtype, B, S, backward in ((torch.bfloat16, 16, 512, False),
+                                  (torch.float32, 2, 1024, True)):
+        c = flash_case(g, dtype, B, S, 0, backward, heads)
+        q, k, v = c["q"], c["k"], c["v"]
+        lib = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*lib, is_causal=True,
+                                                  enable_gqa=True)
+
+        ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True))
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                            causal=True), n=5)
+        with torch.no_grad():
+            lib_ms = time_ms(sdpa)
+        (fb, fby), (bb, bby) = flash_bounds(dtype, B, S, heads)
+        tf = flash_flops(B, S, heads) / 1e9
+        line = (f"{c['line']}; fwd kernel={ms:.4f} ms ({tf / ms:.1f} "
+                f"TFLOP/s) plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms "
+                f"({tf / lib_ms:.1f} TFLOP/s) bound={fb:.4f} ms ({fby}; "
+                f"kernel at {100 * fb / ms:.1f} % of it)")
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], c["err"])
+        if backward:
+            bms = time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, c["out"], c["lse"], c["dout"], causal=True))
+            lib_out = sdpa()
+            lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib, c["dout"], retain_graph=True))
+            line += (f"; bwd kernel={bms:.4f} ms sdpa bwd={lib_bwd_ms:.4f} "
+                     f"ms bound={bb:.4f} ms ({bby})")
+            results["flash_bwd"]["max_abs_err"] = max(
+                results["flash_bwd"]["max_abs_err"], c["grad_err"])
+            del lib_out
+        log(line + f" (stablelm-12b; head_dim limits: forward "
+            f"{fa.MAX_HEAD_DIM}, backward {fa.MAX_HEAD_DIM_BWD})")
+        del c, lib
+        torch.cuda.empty_cache()
+    # the f32 shapes the rlhf and embodied phases give K3: the RLHF
+    # passes and train step (16 x 40), the embodied act (64 x 5, 32 x 5
+    # a hybrid chunk) and train step (1024 x 6)
+    for B, S, backward in ((16, 40, True), (64, 5, False), (32, 5, False),
+                           (1024, 6, True)):
+        c = flash_case(g, torch.float32, B, S, 0, backward, heads)
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], c["err"])
+        if backward:
+            results["flash_bwd"]["max_abs_err"] = max(
+                results["flash_bwd"]["max_abs_err"], c["grad_err"])
+        log(c["line"] + " (stablelm-12b, a shape of the rlhf or embodied "
+            "phase)")
+        del c
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: a small model on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -1163,13 +1276,13 @@ def check_ref_train(arch: str = "yi-9b") -> None:
 # phases 5-6: yi-9b at full width
 # ---------------------------------------------------------------------------
 def serve_once(cfg, params, prompts, *, temperature, top_k, top_p,
-               warm: bool = True):
+               warm: bool = True, max_new_tokens: int = 64):
     import torch
 
     from repro_torch.serve import PagedEngine
 
     eng = PagedEngine(cfg, max_batch=8, page_size=16, prefill_chunk=256,
-                      max_new_tokens=64, max_seq_len=1024,
+                      max_new_tokens=max_new_tokens, max_seq_len=1024,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       eos_token=-1, dtype=torch.bfloat16, device="cuda")
     eng.set_params(params)
@@ -1364,20 +1477,29 @@ def breakdown(eng, prompts, kernels, steps: int = 8) -> None:
 
 
 def greedy_repeat(cfg, params, prompts) -> None:
+    """The requests twice at temperature 0: identical tokens.  On the
+    state layout (SSM, hybrid), whose prompts go through the decode batch
+    a token a step (four 918-step serves took ~220 s of host-bound wall),
+    4 of them cut to 64 prompt tokens with 16 new tokens each."""
     import torch
 
+    new = 64
+    if cfg.ssm is not None:
+        prompts, new = [p[:64] for p in prompts[:4]], 16
     runs = []
     for _ in range(2):
         eng = serve_once(cfg, params, prompts, temperature=0.0, top_k=0,
-                         top_p=1.0, warm=False)
+                         top_p=1.0, warm=False, max_new_tokens=new)
         reqs = [eng.submit(p, seed=SEED + i) for i, p in enumerate(prompts)]
         eng.run()
         runs.append([r.generated for r in reqs])
         del eng
         torch.cuda.empty_cache()
+    assert all(len(g) == new for g in runs[0]), runs[0]
     assert runs[0] == runs[1], "greedy repeat gave different tokens"
-    log(f"greedy: {cfg.name} {len(prompts)} requests x 64 tokens, two runs "
-        f"at temperature 0: identical tokens")
+    log(f"greedy: {cfg.name} {len(prompts)} requests of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} prompt tokens x "
+        f"{new} new tokens, two runs at temperature 0: identical tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -1731,11 +1853,11 @@ def check_sync_copies(runner) -> None:
 
     from repro_torch.utils.treeutil import pytree_leaves
 
-    rl = runner.rl
+    rl = getattr(runner, "rl", None) or runner.ppo
     runner._sync_weights()
     actor = pytree_leaves(runner.actor.params())
     copies = {n: pytree_leaves(runner.workers[n].get_state("params"))
-              for n in ("rollout", "inference")}
+              for n in runner.weight_sync_workers}
     for n, ls in copies.items():
         assert all(torch.equal(a, c) for a, c in zip(actor, ls)), n
         assert all(a.data_ptr() != c.data_ptr()
@@ -1750,6 +1872,25 @@ def check_sync_copies(runner) -> None:
         "grpo: the extra train step changed nothing"
     for n, ls in copies.items():
         assert all(torch.equal(c[..., :8], k) for c, k in zip(ls, kept)), n
+
+
+def _offload_probe(worker, freed: list):
+    """Wrap ``worker.offload`` so each call records (bytes freed on the
+    card, state bytes moved); returns the original method."""
+    import torch
+
+    orig = worker.offload
+
+    def offload(keys=None):
+        torch.cuda.synchronize()
+        m0, sb = torch.cuda.memory_allocated(), worker.state_bytes()
+        moved = orig(keys)
+        freed.append((m0 - torch.cuda.memory_allocated(),
+                      sb - worker.state_bytes()))
+        return moved
+
+    worker.offload = offload
+    return orig
 
 
 def grpo(results: dict, mode: str) -> None:
@@ -1769,8 +1910,9 @@ def grpo(results: dict, mode: str) -> None:
     the card; in collocated mode the plan's first switch cost is the
     profiled on/offload seconds; after the teardown the run holds
     nothing on the card.
-    (The async horizon, ``async_depth=1``, runs in the CPU tests: its run
-    here would not fit the phase's time.)"""
+    (The async horizon, ``async_depth=1``, runs in the CPU tests and at a
+    reduced size in ``tests/test_torch_cuda.py``: its run here would not
+    fit the phase's time.)"""
     import torch
 
     from repro_torch.comm.primitives import reset_router
@@ -1807,24 +1949,14 @@ def grpo(results: dict, mode: str) -> None:
     # its state bytes: an offload frees the card only when nothing else
     # holds the tensors
     freed = []
-    actor_offload = runner.actor.offload
-
-    def offload(keys=None):
-        torch.cuda.synchronize()
-        m0, sb = torch.cuda.memory_allocated(), runner.actor.state_bytes()
-        moved = actor_offload(keys)
-        freed.append((m0 - torch.cuda.memory_allocated(),
-                      sb - runner.actor.state_bytes()))
-        return moved
-
-    runner.actor.offload = offload
+    actor_offload = _offload_probe(runner.actor, freed)
     t0 = time.perf_counter()
     runner.profile()
     torch.cuda.synchronize()
     profile_s = time.perf_counter() - t0
     # the wrapper and the bound method it calls hold the actor: left
     # in place they would keep its state on the card after the run
-    del runner.actor.offload, offload, actor_offload
+    del runner.actor.offload, actor_offload
     runner.plan_execution()
     priced = {n: (cm.onload_time, cm.offload_time, cm.sync_time)
               for n, cm in runner.controller.profiles.items()}
@@ -1922,6 +2054,317 @@ def grpo(results: dict, mode: str) -> None:
     log(f"{tag}: after teardown {left / 1e6:.1f} MB more allocated than "
         f"before the run")
 
+RLHF_LAYERS = 2  # of stablelm-12b's 40: six models' state must fit the card
+
+
+def rlhf(results: dict) -> None:
+    """The paper's RLHF/PPO workflow end to end: ``RLHFRunner`` on
+    stablelm-12b at full width (d 5120, 32 heads / 8 KV of 160, qk-norm,
+    vocab 100352) cut to 2 of 40 layers, f32 (1.58 B params, 6.33 GB a
+    copy: actor and critic 19.0 GB each with AdamW, reference, rollout
+    and inference 6.33 GB each), collocated: profile, plan and two
+    iterations of rollout (K1, K2), recompute, reference logprobs and
+    critic values (K3), reward + GAE, the actor's PPO step with the KL
+    term and the critic's value step (K3 and its backward).  The plan
+    "auto" would make from the same profiles is logged, not run.
+    Gates: every worker on the card; launches per iteration exact (K1 =
+    layers x decode batches, K2 = decode batches, K3 = layers x forward
+    passes, K3 backward = layers x train steps); finite metrics with
+    ``kl_ref``; actor and critic changed and the reference unchanged bit
+    for bit; the synced weights equal the actor's in storage of their
+    own; the profile's offloads of the actor and of the critic free >=
+    90 % of their state bytes; <= 256 MB left after the teardown."""
+    import torch
+
+    from repro_torch.comm.primitives import reset_router
+    from repro_torch.configs import get_config
+    from repro_torch.rl import PPOConfig, RLHFRunner
+    from repro_torch.train import AdamWConfig, TrainHParams
+    from repro_torch.utils.treeutil import pytree_leaves
+
+    L = RLHF_LAYERS
+    tag = "rlhf[collocated]"
+    reset_router()
+    # the engine's context cap as in the serve phases (8 + 32 tokens here):
+    # the default 8192 would hold a 1.34 GB page pool for nothing
+    cfg = get_config("stablelm-12b").replace(num_layers=L, max_seq_len=1024)
+    ppo = PPOConfig(batch_size=16, prompt_len=8, max_new_tokens=32,
+                    iterations=2, mode="collocated", profile_batches=(8, 16),
+                    seed=SEED)
+    hp = TrainHParams(optimizer=AdamWConfig(lr=1e-5, clip_norm=1.0),
+                      kl_coef=ppo.kl_coef, entropy_coef=0.02)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runner = RLHFRunner(cfg, ppo, hp)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert all(w.device.type == "cuda" for w in runner.workers.values()), \
+        {n: w.device for n, w in runner.workers.items()}
+
+    def probe(tree):
+        return [t[..., :8].clone() if t.dim() else t.clone()
+                for t in pytree_leaves(tree)]
+
+    actor0 = probe(runner.actor.params())
+    critic0 = probe(runner.critic.get_state("params"))
+    ref0 = [t.clone() for t in pytree_leaves(
+        runner.reference.get_state("params"))]
+    assert all(torch.equal(a, r[..., :8] if r.dim() else r)
+               for a, r in zip(actor0, ref0))
+    eng = runner.rollout.engine
+    freed = {"actor": [], "critic": []}
+    origs = {n: _offload_probe(getattr(runner, n), freed[n])
+             for n in freed}
+    t0 = time.perf_counter()
+    runner.profile()
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t0
+    # the profile runs every stage with all six models' state resident
+    profile_peak = torch.cuda.max_memory_allocated() / 1e9
+    for n in origs:  # the wrappers hold the workers: drop them
+        del getattr(runner, n).offload
+    del origs
+    runner.controller.scheduler_cfg = runner.scheduler_config()
+    auto = runner.controller.plan(runner.graph(), total_batch=ppo.batch_size,
+                                  mode="auto")
+    runner.plan_execution()
+    state = {n: runner.workers[n].state_bytes() / 1e9
+             for n in ("actor", "critic_v", "reference")}
+    log(f"{tag}: stablelm-12b full width (d {cfg.d_model}, {cfg.num_heads} "
+        f"heads / {cfg.num_kv_heads} KV of {cfg.resolved_head_dim}, vocab "
+        f"{cfg.vocab_size}) cut to {L} of 40 layers, f32; state on the card "
+        f"after the profile: actor {state['actor']:.2f} GB, critic "
+        f"{state['critic_v']:.2f} GB, reference {state['reference']:.2f} "
+        f"GB; batch {ppo.batch_size}, {ppo.prompt_len} + "
+        f"{ppo.max_new_tokens} tokens; runner built in {build_s:.1f} s, "
+        f"profiled in {profile_s:.1f} s (peak {profile_peak:.2f} GB)")
+    for name, cm in runner.controller.profiles.items():
+        log(f"{tag}: profile {name}: base_time={cm.base_time:.6g} s "
+            f"slope_time={cm.slope_time:.6g} s/item "
+            f"onload_time={cm.onload_time:.6g} s "
+            f"offload_time={cm.offload_time:.6g} s "
+            f"base_mem={cm.base_mem / 1e9:.3f} GB")
+    for line in runner.plan.pretty().splitlines():
+        log(f"{tag}: plan: {line}")
+    for line in auto.pretty().splitlines():
+        log(f"{tag}: auto would plan (not run): {line}")
+    del auto
+    value_steps = []
+    train_value = runner.critic.train_value
+
+    def critic_step(c):
+        value_steps.append(1)
+        return train_value(c)
+
+    runner.critic.train_value = critic_step
+    totals = [0, 0, 0, 0]
+    for it in range(ppo.iterations):
+        zero_grpo_launches()
+        d0, v0 = eng.decode_batches, len(value_steps)
+        st = runner.run_iteration(it)
+        torch.cuda.synchronize()
+        k = grpo_launches()
+        db = eng.decode_batches - d0
+        calls, stage_s = {}, {}
+        for name, a, b, _ in runner.controller.last_timeline:
+            calls[name] = calls.get(name, 0) + 1
+            stage_s[name] = stage_s.get(name, 0.0) + (b - a)
+        vsteps = len(value_steps) - v0
+        fwd = (calls["inference"] + calls["reference"] + calls["critic_v"]
+               + calls["actor"] + vsteps)
+        assert k[0] == L * db and k[1] == db, (k, db)
+        assert k[2] == L * fwd, (k, calls, vsteps)
+        assert k[3] == L * (calls["actor"] + vsteps), (k, calls, vsteps)
+        m = st.metrics
+        assert m and all(math.isfinite(v) for v in m.values()), m
+        assert "kl_ref" in m and math.isfinite(st.value_loss), (m, st)
+        totals = [a + b for a, b in zip(totals, k)]
+        log(f"{tag}: iteration {it}: wall {st.wall_time:.3f} s; stages "
+            + ", ".join(f"{n} {stage_s[n]:.3f} s x{calls[n]}"
+                        for n in stage_s)
+            + f"; launches K1={k[0]} K2={k[1]} K3={k[2]} K3bwd={k[3]} "
+            f"({db} decode batches, {fwd} forward passes, "
+            f"{calls['actor'] + vsteps} train steps); "
+            f"reward={st.mean_reward:+.3f} value_loss={st.value_loss:.5g} "
+            f"loss={m['loss']:+.5g} kl_ref={m['kl_ref']:.5g} "
+            f"grad_norm={m.get('grad_norm', float('nan')):.5g}")
+    del runner.critic.train_value, critic_step, train_value
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(actor0, probe(runner.actor.params()))), \
+        "rlhf: the actor's params did not change"
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(critic0, probe(runner.critic.get_state("params")))), \
+        "rlhf: the critic's params did not change"
+    ref = pytree_leaves(runner.reference.get_state("params"))
+    actor = pytree_leaves(runner.actor.params())
+    assert all(torch.equal(a, b) for a, b in zip(ref0, ref)), \
+        "rlhf: the reference moved"
+    assert all(r.data_ptr() != a.data_ptr() for r, a in zip(ref, actor))
+    del ref, actor, ref0
+    check_sync_copies(runner)
+    for n, f in freed.items():
+        assert f and all(x >= 0.9 * sb > 0 for x, sb in f), (n, f)
+    log(f"{tag}: the reference equals the initial actor bit for bit in "
+        f"storage of its own; after a sync rollout and inference equal the "
+        f"actor bit for bit in other storage; the profile's offloads freed "
+        + "; ".join(f"{n} " + ", ".join(f"{x / 1e9:.3f} GB of {sb / 1e9:.3f}"
+                                       f" GB ({100 * x / sb:.1f} %)"
+                                       for x, sb in f)
+                    for n, f in freed.items()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag}: peak memory {peak:.2f} GB (max_memory_allocated); "
+        f"launches over the run K1={totals[0]} K2={totals[1]} K3="
+        f"{totals[2]} K3bwd={totals[3]}; card: {card_line()}")
+    for key, n in zip(("paged_attention", "fused_sample", "flash_fwd",
+                       "flash_bwd"), totals):
+        results[key]["launches"] += n
+    runner.teardown()
+    del runner, eng, actor0, critic0
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start
+    assert left <= 2**28, f"rlhf: {left / 1e9:.3f} GB outlived the run"
+    log(f"{tag}: after teardown {left / 1e6:.1f} MB more allocated than "
+        f"before the run")
+
+
+EMBODIED_LAYERS = 2
+
+
+def embodied_run(mode: str):
+    """One ``EmbodiedPPORunner`` run (see :func:`embodied`); returns its
+    per-iteration trajectories and what the gates read."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.primitives import reset_router
+    from repro_torch.configs import get_config
+    from repro_torch.rl import EmbodiedPPOConfig, EmbodiedPPORunner
+    from repro_torch.rl import embodied_workflow as emb
+    from repro_torch.train import AdamWConfig, TrainHParams
+    from repro_torch.utils.treeutil import pytree_leaves
+
+    L = EMBODIED_LAYERS
+    tag = f"embodied[{mode}]"
+    reset_router()
+    cfg = get_config("stablelm-12b").replace(
+        name="stablelm-policy", num_layers=L, vocab_size=emb.VOCAB,
+        max_seq_len=emb.SEQ)
+    rl = EmbodiedPPOConfig(num_envs=64, horizon=16, iterations=2, mode=mode,
+                           cycle_chunks=2, lr=1e-5, seed=SEED,
+                           profile_batches=(16, 64))
+    hp = TrainHParams(optimizer=AdamWConfig(lr=rl.lr, clip_norm=1.0),
+                      clip_eps_low=0.2, clip_eps_high=0.2)
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runner = EmbodiedPPORunner(rl, cfg, hp)
+    assert all(w.device.type == "cuda" for w in runner.workers.values()), \
+        {n: w.device for n, w in runner.workers.items()}
+    p0 = [t[..., :8].clone() if t.dim() else t.clone()
+          for t in pytree_leaves(runner.actor.params())]
+    runner.profile()
+    runner.plan_execution()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gb = runner.actor.state_bytes() / 1e9
+    for line in runner.plan.pretty().splitlines():
+        log(f"{tag}: plan: {line}")
+    calls = {"policy_gen": 0, "train": 0}
+    for n in calls:
+        fn = runner.task_fns[n]
+
+        def counted(w, c, n=n, fn=fn):
+            calls[n] += 1
+            return fn(w, c)
+
+        runner.task_fns[n] = counted
+    trajs = []
+    runner.post_execute = lambda out: (trajs.append(
+        {k: np.array(out[k]) for k in ("action_tokens", "action_logprobs",
+                                       "rewards", "terminated",
+                                       "truncated")}), out)[1]
+    totals = [0, 0, 0, 0]
+    for it in range(rl.iterations):
+        zero_grpo_launches()
+        before = dict(calls)
+        st = runner.run_iteration(it)
+        torch.cuda.synchronize()
+        k = grpo_launches()
+        acts = calls["policy_gen"] - before["policy_gen"]
+        steps = calls["train"] - before["train"]
+        assert k[0] == k[1] == 0, k
+        assert k[2] == L * (acts + steps), (k, acts, steps)
+        assert k[3] == L * steps, (k, steps)
+        log_mode = runner.controller.last_cycle_log[-1][1]
+        assert log_mode == mode, (log_mode, mode)
+        m = st.metrics
+        assert m and all(math.isfinite(v) for v in m.values()), m
+        totals = [a + b for a, b in zip(totals, k)]
+        log(f"{tag}: iteration {it}: wall {st.wall_time:.3f} s; cycle ran "
+            f"{log_mode} ({runner.controller.last_cycle_log[-1][2]} member "
+            f"devices, {runner.controller.last_cycle_log[-1][3]} chunks); "
+            f"launches K1={k[0]} K2={k[1]} K3={k[2]} K3bwd={k[3]} ({acts} "
+            f"act calls, {steps} train steps); success/env="
+            f"{st.success_rate:.3f} reward={st.mean_reward:+.3f} "
+            f"loss={m['loss']:+.5g} grad_norm="
+            f"{m.get('grad_norm', float('nan')):.5g}")
+    assert not all(torch.equal(a, b[..., :8] if b.dim() else b) for a, b in
+                   zip(p0, pytree_leaves(runner.actor.params()))), \
+        f"{tag}: the policy's params did not change"
+    walls = [s.wall_time for s in runner.stats]
+    log(f"{tag}: stablelm-12b full width (d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
+        f"{cfg.resolved_head_dim}) cut to {L} layers, the embodied token "
+        f"space (vocab {cfg.vocab_size}), f32 + AdamW {gb:.2f} GB; "
+        f"{rl.num_envs} envs x {rl.horizon} steps; set up and profiled in "
+        f"{setup_s:.1f} s; iterations {', '.join(f'{w:.3f}' for w in walls)}"
+        f" s; launches over the run K3={totals[2]} K3bwd={totals[3]}")
+    runner.teardown()
+    del runner, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start
+    assert left <= 2**28, f"{tag}: {left / 1e9:.3f} GB outlived the run"
+    return trajs, totals
+
+
+def embodied(results: dict) -> None:
+    """The embodied PPO workflow end to end: ``EmbodiedPPORunner``, the
+    policy at stablelm-12b's full width cut to 2 layers over the embodied
+    token space (35 tokens), f32 + AdamW at lr 1e-5; 64 envs, 16 cycle
+    steps, two iterations, run once forced collocated and once forced
+    hybrid (2 env chunks).  Gates: every worker on the card; the two
+    runs' action tokens, rewards and terminated/truncated equal and
+    their logprobs within 1e-4 (the port's act noise is a hash of (seed,
+    round, step, env id), so the chunking does not change it);
+    ``controller.last_cycle_log`` records the forced realization; per
+    iteration K3 = layers x (act calls + train forwards) and its backward
+    = layers x train steps, exactly, K1 = K2 = 0; finite metrics and
+    changed params."""
+    import numpy as np
+
+    runs = {mode: embodied_run(mode) for mode in ("collocated", "hybrid")}
+    (tc, kc), (th, kh) = runs["collocated"], runs["hybrid"]
+    assert len(tc) == len(th) == 2
+    worst = 0.0
+    for a, b in zip(tc, th):
+        for key in ("action_tokens", "rewards", "terminated", "truncated"):
+            assert np.array_equal(a[key], b[key]), key
+        worst = max(worst, float(np.abs(a["action_logprobs"]
+                                        - b["action_logprobs"]).max()))
+    assert worst <= 1e-4, worst
+    log(f"embodied: collocated and hybrid runs: action tokens, rewards and "
+        f"terminated/truncated equal over {len(tc)} iterations, "
+        f"max|logprob diff| {worst:.3g} (tol 1e-4); "
+        f"{int(sum(t['terminated'].sum() for t in tc))} goals reached, "
+        f"{int(sum(t['truncated'].sum() for t in tc))} episodes cut; card: "
+        f"{card_line()}")
+    for key, n in zip(("paged_attention", "fused_sample", "flash_fwd",
+                       "flash_bwd"), [a + b for a, b in zip(kc, kh)]):
+        results[key]["launches"] += n
+
 
 def main() -> int:
     try:
@@ -1960,12 +2403,18 @@ def main() -> int:
         check_paged_attention(dtype, results)
         check_paged_attention(dtype, results, GRANITE_HEADS,
                               "granite-moe-3b-a800m")
+        check_paged_attention(dtype, results, STABLELM_HEADS, "stablelm-12b")
+    # the rlhf phase's decode batch: 8 slots of 8 prompt + <= 32 new tokens
+    check_paged_attention(torch.float32, results, STABLELM_HEADS,
+                          "stablelm-12b", RLHF_DECODE_CTX)
     check_fused_sample(results)
     check_fused_sample(results, 51200, 49155, "granite-moe-3b-a800m")
     check_fused_sample(results, 51200, 50280, "mamba2-370m")
     check_fused_sample(results, 32768, 32000, "zamba2-2.7b")
+    check_fused_sample(results, 100352, 100352, "stablelm-12b")
     check_flash_attention(results)
     check_flash_zamba2()
+    check_flash_stablelm(results)
     check_grouped_matmul(results)
     check_moe_decode(results)
     check_ssd_scan(results)
@@ -2007,6 +2456,9 @@ def main() -> int:
     # the runtime end to end: profile -> plan -> execute on the card
     grpo(results, "collocated")
     grpo(results, "auto")
+    # the paper's two other workflow families
+    rlhf(results)
+    embodied(results)
 
     kernels = [results[k] for k in ("paged_attention", "fused_sample",
                                     "flash_fwd", "flash_bwd",

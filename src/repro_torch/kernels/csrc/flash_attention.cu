@@ -38,7 +38,8 @@
 // without its ping-pong between warpgroups):
 //   - a block takes a 64-row query tile of one (b, h): one consumer
 //     warpgroup (4 warps, 16 rows each) and one producer warp, 160 threads
-//     and 81 KB of shared memory, so two independent blocks share an SM;
+//     and 81 KB of shared memory at D <= 128, so two independent blocks
+//     share an SM (121 KB at D = 160, 161 KB at 256: one);
 //   - the producer warp streams Q once and K and V tiles of 64 keys x D
 //     through a ring of 2 slots each by TMA (one thread issues each
 //     64-column box, zero past S and D, 128-byte swizzle) and mbarriers:
@@ -58,7 +59,13 @@
 //     serializes the products;
 //   - D is zero-padded to DP, a multiple of 16 (zero columns add nothing to
 //     a score, padded output columns are not written); one template
-//     instance for each DP;
+//     instance for each DP up to 256.  TMA fills the columns of the last
+//     64-column box past D with zeros and the k-steps of Q K^T stop at DP,
+//     so that fill reaches no score.  O holds DP / 2 f32 registers a thread
+//     beside S's 32 (80 at stablelm-12b's D = 160, 128 at 256): the one
+//     warpgroup keeps all of O, and past DP = 128 P V goes out as two
+//     products with the one A fragment of P, N = 128 over V's first two
+//     64-column blocks and N = DP - 128 from its third;
 //   - query tiles run longest first (causal rows near S first).
 // P is rounded to bf16 before P V where the plain version keeps it in f32;
 // on the TPU, JAX's default matmul precision fed the MXU bf16 passes too.
@@ -75,6 +82,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxD = 256;  // head_dim: wgmma's N (P V) stops at 256
 
 struct Strides {  // element strides of a (B, heads, S, D) view; D is unit
   long long b, h, s;
@@ -452,8 +460,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg::touch(acc);
     wg::fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)  // 16 keys = 2048 bytes a k-step
-      wg::rs_k16(acc, pf[kk], dv + kk * 128);
+    for (int kk = 0; kk < kKeys / 16; ++kk) {  // 16 keys = 2048 bytes a step
+      if constexpr (DP <= 128) {
+        wg::rs_k16(acc, pf[kk], dv + kk * 128);
+      } else {  // N = 128, then the columns past 128 from V's third block
+        wg::rs_k16(*reinterpret_cast<float(*)[64]>(acc), pf[kk],
+                   dv + kk * 128);
+        wg::rs_k16(*reinterpret_cast<float(*)[DP / 2 - 64]>(acc + 64), pf[kk],
+                   dv + kk * 128 + 2 * kKeys * 8);
+      }
+    }
     wg::commit();
   };
 
@@ -599,7 +615,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // q (B, H, S, D), k/v (B, KV, S, D), o like q, all of one type, each a view
 // with a unit stride on D and the (b, head, s) element strides given in
 // `strides` (12 int64: q, k, v, o); lse (B, H, S) f32 contiguous.
-// D <= 128, H % KV == 0.  `bf16` selects bf16 (1, the tensor-core kernel;
+// D <= 256, H % KV == 0.  `bf16` selects bf16 (1, the tensor-core kernel;
 // every row of q, k and v must start 16-byte aligned, or it returns
 // cudaErrorInvalidValue) or f32 (0, the CUDA-core kernel).  Returns
 // cudaGetLastError() after the launch.
@@ -608,7 +624,8 @@ extern "C" int flash_attention_fwd_launch(
     const long long* strides, int B, int H, int KV, int S, int D, int causal,
     int window, int bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (D < 1 || D > 128 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxD || KV < 1 || H % KV)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const Strides st[4] = {{strides[0], strides[1], strides[2]},
@@ -622,7 +639,16 @@ extern "C" int flash_attention_fwd_launch(
       return launch_f32<2>(q, k, v, o, l, st, B, H, KV, S, D, causal, window, s);
     if (D <= 64)
       return launch_f32<4>(q, k, v, o, l, st, B, H, KV, S, D, causal, window, s);
-    return launch_f32<8>(q, k, v, o, l, st, B, H, KV, S, D, causal, window, s);
+    if (D <= 128)
+      return launch_f32<8>(q, k, v, o, l, st, B, H, KV, S, D, causal, window, s);
+    if (D <= 160)
+      return launch_f32<10>(q, k, v, o, l, st, B, H, KV, S, D, causal, window,
+                            s);
+    if (D <= 192)
+      return launch_f32<12>(q, k, v, o, l, st, B, H, KV, S, D, causal, window,
+                            s);
+    return launch_f32<16>(q, k, v, o, l, st, B, H, KV, S, D, causal, window,
+                          s);
   }
 #define K3_CASE(DP)                                                        \
   case DP / 16:                                                            \
@@ -637,6 +663,14 @@ extern "C" int flash_attention_fwd_launch(
     K3_CASE(96)
     K3_CASE(112)
     K3_CASE(128)
+    K3_CASE(144)
+    K3_CASE(160)
+    K3_CASE(176)
+    K3_CASE(192)
+    K3_CASE(208)
+    K3_CASE(224)
+    K3_CASE(240)
+    K3_CASE(256)
   }
 #undef K3_CASE
   return (int)cudaErrorInvalidValue;

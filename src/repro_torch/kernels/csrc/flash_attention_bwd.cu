@@ -62,8 +62,13 @@
 //
 // Shared memory (f32 tiles of pitch P = tile_pitch(D)): launch 2 holds K,
 // V, a 2-slot ring of Q and dO, one [query][key] buffer for P and then dS,
-// and the ring's lse and delta: 222,208 B at D = 128, one block an SM;
-// launch 4 a 2-slot ring of K and dS^T tiles: 100,352 B, two blocks.
+// and the ring's lse and delta: 222,208 B at D = 128, one block an SM.
+// Past D = 128 (stablelm-12b's 160) two slots would pass the SM's 227 KB,
+// so the ring has one: the next Q and dO are staged once the step has
+// read them (187,392 B at D = 160, 220,160 B at the limit of 192), and a
+// thread's accumulators grow to NCH = 3 chunks (96 f32 of dK and dV).
+// Launch 4 holds a 2-slot ring of K and dS^T tiles: 100,352 B at D = 128,
+// two blocks an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -75,6 +80,15 @@ namespace {
 constexpr int kB = 64;           // query and key tile rows
 constexpr int kThreads = 256;
 constexpr int kPP = kB + 8;      // pitch of P / dS [query][key]
+// head_dim: launch 2's K, V, Q and dO tiles of 64 f32 rows fill 215 KB at
+// 192 with one slot of Q and dO, and pass the SM's 227 KB above 200
+constexpr int kMaxD = 192;
+
+// slots of launch 2's Q / dO ring: two (staging overlaps the products) up
+// to D = 128, where they fill 217 KB; one past it
+__host__ __device__ constexpr int ring_slots(int nch) {
+  return nch <= 2 ? 2 : 1;
+}
 
 struct Strides {
   long long b, h, s;
@@ -201,7 +215,9 @@ __host__ __device__ inline long long tiles_before(int i, int S, int causal,
 
 // s = Q K^T and dp = dO V^T for the thread's 4 x 4 tile (query rows
 // ty + 16 i, keys tx + 16 j): each element one fmaf chain over d in
-// increasing order from 0, the forward's order and delta's.
+// increasing order from 0, the forward's order and delta's.  U column
+// chunks in flight: 2, or 1 beside NCH = 3's 96 accumulators.
+template <int U>
 __device__ __forceinline__ void scores(const float* q_s, const float* do_s,
                                        const float* k_s, const float* v_s,
                                        int Dc, int P, int ty, int tx,
@@ -210,7 +226,7 @@ __device__ __forceinline__ void scores(const float* q_s, const float* do_s,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
+#pragma unroll U
   for (int c = 0; c < Dc; ++c) {
     float4 a[4], b[4];
 #pragma unroll
@@ -258,7 +274,10 @@ __device__ __forceinline__ void update(const float* w_s, const float* x_s,
   int col[NCH];
 #pragma unroll
   for (int n = 0; n < NCH; ++n) col[n] = 4 * min(x0 + 16 * n, Dc - 1);
-#pragma unroll 4
+  // rows in flight: 4 up to NCH = 2; at NCH = 3 the 96 accumulators of
+  // launch 2 leave registers for 2 (4 spilled at 255 registers)
+  constexpr int kRows = NCH <= 2 ? 4 : 2;
+#pragma unroll kRows
   for (int r = 0; r < kB; ++r) {
     const float4 w4 = *reinterpret_cast<const float4*>(w_s + r * WP + 4 * y);
     const float w[4] = {w4.x, w4.y, w4.z, w4.w};
@@ -338,11 +357,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(
   const int tx = (warp & 1) * 8 + (lane & 7);     // 0..15
 
   extern __shared__ float4 smem4[];
+  constexpr int kSlots = ring_slots(NCH);
   float* k_s = reinterpret_cast<float*>(smem4);  // kB x P
   float* v_s = k_s + kB * P;                     // kB x P
-  float* q_s = v_s + kB * P;                     // 2 slots of kB x P
-  float* do_s = q_s + 2 * kB * P;                // 2 slots of kB x P
-  float* ps = do_s + 2 * kB * P;                 // kB x kPP: P, then dS
+  float* q_s = v_s + kB * P;                     // kSlots of kB x P
+  float* do_s = q_s + kSlots * kB * P;           // kSlots of kB x P
+  float* ps = do_s + kSlots * kB * P;            // kB x kPP: P, then dS
   float* lse_s = ps + kB * kPP;                  // 2 slots of kB
   float* dl_s = lse_s + 2 * kB;                  // 2 slots of kB
 
@@ -383,10 +403,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(
     stage(0, 0);
     cp_async_commit();
     for (int u = 0; u < n; ++u) {
-      const int slot = u & 1;
+      const int slot = kSlots == 2 ? u & 1 : 0;
       cp_async_wait_all();
       __syncthreads();  // step u's tiles are in; step u - 1 is done
-      if (u + 1 < n) stage(u + 1, slot ^ 1);
+      if (kSlots == 2 && u + 1 < n) stage(u + 1, slot ^ 1);
       cp_async_commit();
       const int qt = qa + u % nqt;
       const int q0 = qt * kB;
@@ -396,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(
       const float* dr = dl_s + slot * kB;
 
       float s[4][4], dp[4][4];
-      scores(qs, dos, k_s, v_s, Dc, P, ty, tx, s, dp);
+      scores<NCH <= 2 ? 2 : 1>(qs, dos, k_s, v_s, Dc, P, ty, tx, s, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
@@ -430,6 +450,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(
         }
       __syncthreads();
       update<NCH, kPP>(ps, qs, P, Dc, ty, tx, dk_acc);
+      if (kSlots == 1 && u + 1 < n) {  // one slot: stage once it is read
+        __syncthreads();
+        stage(u + 1, 0);
+        cp_async_commit();
+      }
     }
 
     // keys k0 + 4 ty + i, columns 4 (tx + 16 n) + e
@@ -560,9 +585,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
   }
 }
 
-size_t dkdv_smem_bytes(int D) {
-  return sizeof(float) *
-         ((size_t)6 * kB * tile_pitch(D) + (size_t)kB * kPP + 4 * kB);
+size_t dkdv_smem_bytes(int D, int slots) {
+  return sizeof(float) * ((size_t)(2 + 2 * slots) * kB * tile_pitch(D) +
+                          (size_t)kB * kPP + 4 * kB);
 }
 
 size_t dq_smem_bytes(int D) {
@@ -635,7 +660,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int groups = head_groups(B, H, KV, S);
   const int nk = (S + kB - 1) / kB;
   auto dkdv = flash_bwd_dkdv_kernel<T, NCH>;
-  const size_t b2 = dkdv_smem_bytes(D);
+  const size_t b2 = dkdv_smem_bytes(D, ring_slots(NCH));
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)b2);
   if (err != cudaSuccess) return err;
@@ -677,7 +702,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch<T, 1>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H,
                         KV, S, D, causal, window, stream);
-  return launch<T, 2>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H, KV,
+  if (D <= 128)
+    return launch<T, 2>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H,
+                        KV, S, D, causal, window, stream);
+  return launch<T, 3>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H, KV,
                       S, D, causal, window, stream);
 }
 
@@ -703,7 +731,7 @@ extern "C" long long flash_attention_bwd_workspace(int B, int H, int KV,
 // views with a unit stride on D and the (b, head, s) element strides in
 // `strides` (24 int64: q, k, v, o, dout, dq, dk, dv); lse (B, H, S) f32
 // from the forward; `work` f32 scratch of flash_attention_bwd_workspace()
-// floats.  D <= 128, H % KV == 0.  Returns the first CUDA error of the
+// floats.  D <= 192, H % KV == 0.  Returns the first CUDA error of the
 // launches, else 0.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -711,7 +739,8 @@ extern "C" int flash_attention_bwd_launch(
     void* dv, const long long* strides, int B, int H, int KV, int S, int D,
     int causal, int window, int bf16, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (D < 1 || D > 128 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxD || KV < 1 || H % KV)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(work);

@@ -11,6 +11,12 @@ through XLA), on the CUDA cores in full f32 for both types, with exact
 zeros in dq and dk on rows that see one key.  :class:`FlashAttention`
 ties the two into autograd.
 
+head_dim limits: the forward kernels take D <= 256 (:data:`MAX_HEAD_DIM`,
+wgmma's widest product), the backward D <= 192 (:data:`MAX_HEAD_DIM_BWD`:
+its dK/dV block holds K, V, Q and dO as 64-row f32 tiles, 215 KB of the
+SM's 227 KB at 192).  The zoo's widest is stablelm-12b's 160.  Past its
+limit a wrapper raises; it never falls back to the plain version.
+
 Layouts:
   q, out  (B, H, S, D)   bf16 or f32; any (b, h, s) strides, unit D stride
   k, v    (B, KV, S, D)  q's type
@@ -26,6 +32,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+MAX_HEAD_DIM_BWD = 192
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -63,7 +71,7 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, max_d: int = MAX_HEAD_DIM) -> None:
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash attention kernels run on CUDA tensors, "
@@ -85,8 +93,10 @@ def _check(q, k, v) -> None:
             or H % KV:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
                          "not agree (H must be a multiple of KV)")
-    if not 1 <= D <= 128:
-        raise ValueError(f"head_dim {D}: the kernels take 1..128")
+    if not 1 <= D <= max_d:
+        raise ValueError(f"head_dim {D}: the flash-attention "
+                         f"{'forward' if max_d == MAX_HEAD_DIM else 'backward'}"
+                         f" kernel takes head_dim 1..{max_d}")
 
 
 def _unit_d(t: torch.Tensor) -> torch.Tensor:
@@ -139,7 +149,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """Launch the backward kernel on the tensors' card: (dq, dk, dv) in the
     inputs' types and layouts, from the forward's ``out`` and ``lse`` and
     the output gradient ``dout``."""
-    _check(q, k, v)
+    _check(q, k, v, MAX_HEAD_DIM_BWD)
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError("out and dout must match q in shape and type")

@@ -87,6 +87,15 @@ class GRPOConfig:
     async_depth: int = 0
     # truncation bound for the per-token importance ratios
     staleness_clip: float = 2.0
+    # apply the correction (disable to get raw clipped-PPO staleness
+    # handling, the pre-correction behaviour)
+    staleness_correction: bool = True
+    # legacy alias (AReaL-style 1-step asynchrony): maps to async_depth=1
+    async_offpolicy: bool = False
+
+    def __post_init__(self):
+        if self.async_offpolicy and self.async_depth == 0:
+            self.async_depth = 1
 
 
 @dataclass
@@ -272,7 +281,7 @@ class GRPORunner(WorkflowRunner):
             chunk = item.data
             version = self._published[0]
             staleness = version - item.version
-            if staleness > 0:
+            if staleness > 0 and self.rl.staleness_correction:
                 # Re-score the stale rollout at the CURRENT parameters
                 # (explicit params: the shared inference worker's state
                 # belongs to the producer thread) and damp each token so

@@ -7,17 +7,21 @@ elastic pipelining relies on (§3.3).  Chunks travel between workers as
 dicts of host numpy arrays; each worker moves what it needs onto its
 device and hands numpy back.
 
-Counterpart of the GRPO workers of the JAX package's ``rl/workers.py``:
-``RolloutWorker``, ``InferenceWorker``, ``ActorWorker`` and
-``RewardWorker``.  The rollout runs on the paged engine only (the static
-``Engine`` is ROADMAP.md queue 1, item 4), and it has no closed-loop
-``act`` path; ``act`` and ``SimulatorWorker`` come with the embodied
-workflow (item 7).
+Counterpart of the JAX package's ``rl/workers.py``: ``RolloutWorker``
+(with the closed-loop ``act`` path of the embodied cycle),
+``InferenceWorker``, ``ActorWorker``, ``RewardWorker`` and
+``SimulatorWorker``.  The rollout generates on the paged engine; the
+static ``Engine`` has ``act`` only, and its ``generate`` raises
+(ROADMAP.md queue 1, item 4).  The act path draws its noise from the
+port's counter-based hash of (seed ^ 0x5EED, rollout round, cycle step,
+env id) (:func:`~repro_torch.serve.sampling.act_noise`), where the JAX
+worker folds a threefry key by the same tuple.
 """
 from __future__ import annotations
 
+import time
 import warnings
-from typing import Any, Dict, Iterator, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,9 +31,11 @@ from repro_torch.core.worker import Worker
 from repro_torch.device import DeviceLike
 from repro_torch.models import init_model
 from repro_torch.rl.advantage import broadcast_to_tokens, grpo_advantages
+from repro_torch.rl.env import EnvConfig, VecReachEnv
 from repro_torch.rl.reward import math_reward
 from repro_torch.serve import layouts as serve_layouts
-from repro_torch.serve.engine import PagedEngine
+from repro_torch.serve.engine import Engine, PagedEngine
+from repro_torch.serve.sampling import act_noise
 from repro_torch.train.optimizer import init_adamw
 from repro_torch.train.trainer import (
     TrainHParams,
@@ -38,9 +44,9 @@ from repro_torch.train.trainer import (
 )
 
 STATIC_ENGINE_UNPORTED = (
-    "the static Engine is not ported yet (ROADMAP.md queue 1, item 4: the "
-    "static Engine); the paged engine serves dense and MoE stacks without "
-    "a sliding window, and SSM and hybrid stacks")
+    "the static Engine's generate is not ported yet (ROADMAP.md queue 1, "
+    "item 4: the static Engine); the paged engine serves dense and MoE "
+    "stacks without a sliding window, and SSM and hybrid stacks")
 
 
 def rollout_seeds(seed: int) -> Iterator[int]:
@@ -55,44 +61,78 @@ def rollout_seeds(seed: int) -> Iterator[int]:
 class RolloutWorker(Worker):
     """Generation engine (the paper's SGLang/vLLM role).
 
-    Generates through the continuous-batching
-    :class:`~repro_torch.serve.engine.PagedEngine`: requests join/leave
-    the decode batch per step, the cache lives in the arch's layout
-    (paged KV blocks or constant-size recurrent state), and trainer
-    weight updates apply in flight with per-request version tags.  An
+    ``engine="paged"`` (what ``"auto"`` picks for every arch a cache
+    layout covers: dense, MoE, SSM, hybrid) generates through the
+    continuous-batching :class:`~repro_torch.serve.engine.PagedEngine`:
+    requests join/leave the decode batch per step, the cache lives in
+    the arch's layout (paged KV blocks or constant-size recurrent state),
+    and trainer weight updates apply in flight with per-request version
+    tags.  ``engine="static"`` builds the act-only
+    :class:`~repro_torch.serve.engine.Engine` (the embodied policy), the
+    one engine :meth:`act` runs on; it takes no generation settings.  An
     arch no layout covers (windowed dense attention, encoder-decoder,
-    VLM) raises: the JAX worker falls back to its static engine there.
+    VLM) raises under ``"auto"``: the JAX worker falls back to its static
+    engine there, whose ``generate`` the port lacks.
 
     Sampling seeds come from :attr:`seeds` (:func:`rollout_seeds` of
     ``seed + process_index``), one base seed a call; a caller may replace
-    the stream (tests feed the JAX worker's base seeds).
+    the stream (tests feed the JAX worker's base seeds).  The act path's
+    noise comes from :attr:`act_noise_fn`, a callable of (rollout round,
+    cycle step, env ids, V) returning (B, V) Gumbel draws; tests may
+    replace it (with JAX's draws).
     """
 
     def __init__(self, name: str, *, cfg: ModelConfig,
                  max_new_tokens: int = 16, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0,
                  seed: int = 0, devices: Sequence[int] = (),
-                 process_index: int = 0, max_batch: int = 8, page_size: int = 16,
+                 process_index: int = 0, engine: str = "auto",
+                 max_batch: int = 8, page_size: int = 16,
                  prefix_sharing: bool = True, prefill_chunk: int = 32,
+                 action_range: Optional[tuple] = None,
+                 act_latency: float = 0.0,
+                 act_latency_per_env: float = 0.0,
                  device: DeviceLike = None):
         super().__init__(name, devices=devices, process_index=process_index,
                          device=device)
         self.cfg = cfg
-        if not serve_layouts.covers(cfg):
-            raise NotImplementedError(
-                f"RolloutWorker {name!r}: arch {cfg.name!r} (kind="
-                f"{cfg.kind}, sliding_window={cfg.sliding_window}) needs "
-                "the static engine, and " + STATIC_ENGINE_UNPORTED)
-        # prefix sharing makes a GRPO group's common prompt prefill
-        # once: generate() submits all group members to one engine,
-        # the first admission indexes the prompt pages in the radix
-        # cache and every sibling adopts them
-        self.engine = PagedEngine(
-            cfg, max_batch=max_batch, page_size=page_size,
-            max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, top_p=top_p, prefix_sharing=prefix_sharing,
-            prefill_chunk=prefill_chunk, device=self.device)
+        # [lo, hi) vocab window of action tokens for the closed-loop
+        # `act` path (embodied cycles); None for pure text workflows
+        self.action_range = action_range
+        # artificial act-path latency mimicking a VLA-scale policy
+        # forward: flat per call + per env acted on
+        self.act_latency = act_latency
+        self.act_latency_per_env = act_latency_per_env
+        if engine == "auto":
+            if not serve_layouts.covers(cfg):
+                raise NotImplementedError(
+                    f"RolloutWorker {name!r}: arch {cfg.name!r} (kind="
+                    f"{cfg.kind}, sliding_window={cfg.sliding_window}) "
+                    "needs the static engine, and " + STATIC_ENGINE_UNPORTED)
+            engine = "paged"
+        assert engine in ("paged", "static"), engine
+        self.engine_kind = engine
+        if engine == "paged":
+            # prefix sharing makes a GRPO group's common prompt prefill
+            # once: generate() submits all group members to one engine,
+            # the first admission indexes the prompt pages in the radix
+            # cache and every sibling adopts them
+            self.engine = PagedEngine(
+                cfg, max_batch=max_batch, page_size=page_size,
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, prefix_sharing=prefix_sharing,
+                prefill_chunk=prefill_chunk, device=self.device)
+        else:
+            # act samples at temperature 1 over the action window, as
+            # JAX's does; the generation settings serve generate alone
+            self.engine = Engine(cfg, device=self.device)
         self.seeds: Iterator[int] = rollout_seeds(seed + process_index)
+        # the act path's noise: a fixed base seed, hashed with the round,
+        # the cycle step and the env id (never consumed sequentially), so
+        # any chunking of the env batch draws identical actions
+        self.act_noise_fn: Callable[..., torch.Tensor] = (
+            lambda rnd, step, ids, V: act_noise(seed ^ 0x5EED, rnd, step,
+                                                ids, V, self.device))
         self.register_state("params", None)
 
     def bind_devices(self, devices: Sequence[int]) -> None:
@@ -102,14 +142,14 @@ class RolloutWorker(Worker):
         new = self.mesh_of(tuple(devices))
         if new and new[0] != self.engine.device:
             raise NotImplementedError(
-                f"moving {self.name}'s paged engine from "
+                f"moving {self.name}'s {self.engine_kind} engine from "
                 f"{self.engine.device} to {new[0]}: the port runs on one "
                 "card (ROADMAP.md queue 1, item 12: multi-device)")
         super().bind_devices(devices)
 
     def offload(self, keys: Optional[Sequence[str]] = None):
         moved = super().offload(keys)
-        if "params" in moved:
+        if "params" in moved and isinstance(self.engine, PagedEngine):
             # the engine holds the applied weights too: drop them, or
             # the offload frees nothing on the card
             self.engine.release_params()
@@ -121,7 +161,8 @@ class RolloutWorker(Worker):
     def update_weights(self, params: Any,
                        version: Optional[int] = None) -> None:
         self.set_state("params", params)
-        self.engine.update_weights(params, version)
+        if isinstance(self.engine, PagedEngine):
+            self.engine.update_weights(params, version)
 
     def generate(self, chunk: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         params = self.get_state("params")
@@ -137,9 +178,54 @@ class RolloutWorker(Worker):
         return out
 
     def request_records(self):
-        """(tokens, service_time) per completed request since last call —
-        feeds the profiler's measured tail factor."""
-        return self.engine.pop_request_records()
+        """(tokens, service_time) per completed request since last call
+        (paged engine only) — feeds the profiler's measured tail factor."""
+        if isinstance(self.engine, PagedEngine):
+            return self.engine.pop_request_records()
+        return []
+
+    # closed-loop action path (the embodied sim<->generation cycle):
+    # one constrained sampling step per env step, through the engine
+    def _act_engine(self) -> Engine:
+        if isinstance(self.engine, Engine):
+            return self.engine
+        # JAX builds a hidden static engine for a paged worker's act; the
+        # port's one acting worker (the embodied policy) is built static
+        raise NotImplementedError(
+            f"RolloutWorker {self.name!r}: act runs on the act-only static "
+            "Engine; build the worker with engine=\"static\"")
+
+    def act(self, chunk: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Per-step action sampling for the cycle executor.  Consumes
+        ``prompt_tokens`` (B, S) plus the executor-injected
+        ``cycle_step`` / ``env_ids``; emits ``action_tokens``,
+        ``action_logprobs`` and env-space ``actions``."""
+        assert self.action_range is not None, \
+            "RolloutWorker.act needs action_range=(lo, hi)"
+        params = self.get_state("params")
+        assert params is not None, "rollout weights not initialized"
+        lo, hi = self.action_range
+        prompts = np.asarray(chunk["prompt_tokens"])
+        if self.act_latency or self.act_latency_per_env:
+            time.sleep(self.act_latency
+                       + self.act_latency_per_env * prompts.shape[0])
+        ids = np.asarray(chunk.get("env_ids", np.arange(prompts.shape[0])))
+        step = int(chunk.get("cycle_step", 0))
+        # noise on (rollout_round, cycle_step, env_id): the round keeps
+        # exploration noise FRESH across training iterations (cycle_step
+        # restarts at 0 every rollout), while the per-env hash keeps
+        # sampling invariant to how the env batch is chunked
+        rnd = chunk.get("rollout_round", 0)
+        rnd = int(np.asarray(rnd).reshape(-1)[0]) if np.ndim(rnd) else int(rnd)
+        tok, lp = self._act_engine().act(
+            params, prompts,
+            lambda V: self.act_noise_fn(rnd, step, ids, V),
+            action_lo=lo, action_hi=hi)
+        out = dict(chunk)
+        out["action_tokens"] = tok.cpu().numpy()
+        out["action_logprobs"] = lp.cpu().numpy()
+        out["actions"] = out["action_tokens"] - lo
+        return out
 
 
 class InferenceWorker(Worker):
@@ -209,9 +295,11 @@ class ActorWorker(Worker):
         dev = self.device
         batch = {"tokens": torch.tensor(np.asarray(chunk["tokens"]),
                                         dtype=torch.long, device=dev)}
-        for k in ("old_logprobs", "advantages", "loss_mask"):
-            batch[k] = torch.tensor(np.asarray(chunk[k]),
-                                    dtype=torch.float32, device=dev)
+        # ref_logprobs (the PPO actor's KL anchor) when the chunk has them
+        for k in ("old_logprobs", "advantages", "loss_mask", "ref_logprobs"):
+            if k in chunk:
+                batch[k] = torch.tensor(np.asarray(chunk[k]),
+                                        dtype=torch.float32, device=dev)
         params, opt, metrics = self._step(params, opt, batch)
         self.set_state("params", params)
         self.set_state("opt", opt)
@@ -254,3 +342,45 @@ class RewardWorker(Worker):
         out["loss_mask"] = mask
         out["advantages"] = broadcast_to_tokens(adv_seq, mask)
         return out
+
+
+class SimulatorWorker(Worker):
+    """Embodied simulator (CPU-bound, instance-replicated — Fig. 3): host
+    numpy, no device state."""
+
+    def __init__(self, name: str, *, env_cfg: EnvConfig, seed: int = 0,
+                 devices: Sequence[int] = (), process_index: int = 0,
+                 device: DeviceLike = None):
+        super().__init__(name, devices=devices, process_index=process_index,
+                         device=device)
+        self.env = VecReachEnv(env_cfg, seed=seed + process_index)
+        self.env_cfg = env_cfg
+
+    def step_env(self, chunk: Dict[str, Any]) -> Dict[str, Any]:
+        """Closed-loop per-step task for the cycle executor.
+
+        Without ``actions`` in the chunk this is the loop's PRIME call:
+        it returns the current observation only.  With ``actions``
+        (B,) it steps the env subset named by ``env_ids`` (or all envs),
+        returning the post-reset obs the next action must be computed
+        from, the step's reward, and the terminated/truncated split plus
+        ``terminal_obs`` that correct GAE bootstrapping needs."""
+        out = dict(chunk)
+        ids = chunk.get("env_ids")
+        ids = np.asarray(ids) if ids is not None else None
+        if "actions" not in chunk:
+            out["obs"] = self.env.observe(ids)
+            return out
+        obs, rew, done, info = self.env.step(
+            np.asarray(chunk["actions"]), ids)
+        out["obs"] = obs
+        out["rewards"] = rew
+        out["dones"] = done
+        out["terminated"] = info["terminated"].astype(np.float32)
+        out["truncated"] = info["truncated"].astype(np.float32)
+        out["terminal_obs"] = info["terminal_obs"]
+        out["successes"] = int(info["success"].sum())
+        return out
+
+    def observe(self, _chunk: Optional[Dict] = None) -> Dict[str, Any]:
+        return {"obs": self.env.observe()}

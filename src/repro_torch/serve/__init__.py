@@ -1,4 +1,5 @@
 from repro_torch.serve.engine import (  # noqa: F401
+    Engine,
     GenerationResult,
     PagedEngine,
 )
@@ -21,6 +22,7 @@ from repro_torch.serve.paging import (  # noqa: F401
     init_paged_cache,
 )
 from repro_torch.serve.sampling import (  # noqa: F401
+    act_noise,
     request_noise,
     sample_token,
     sample_tokens_fused,

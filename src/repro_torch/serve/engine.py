@@ -1,4 +1,5 @@
-"""Rollout/serving engine: paged continuous batching.
+"""Rollout/serving engines: paged continuous batching, and the static
+engine's closed-loop action path.
 
 :class:`PagedEngine` is continuous batching over a device cache whose
 layout follows the architecture (:mod:`repro_torch.serve.layouts`): the
@@ -14,8 +15,11 @@ It returns per-token *behaviour logprobs* so the trainer can form
 importance ratios without a separate inference pass.
 
 Counterpart of ``PagedEngine`` in the JAX package's ``serve/engine.py``,
-without its tracing and metrics hooks; the static ``Engine`` comes with a
-later slice.
+without its tracing and metrics hooks.  Of that module's static
+:class:`Engine` the port has the constructor and :meth:`Engine.act` (one
+forward, a masked Gumbel-max draw a row: the embodied workflow's policy
+step); its ``generate`` needs ``prefill`` and the dense decode path and
+raises (ROADMAP.md queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.layers import NEG_INF
 from repro_torch.serve import layouts as layouts_mod
 from repro_torch.serve.paging import (
     OutOfPages,
@@ -45,6 +51,58 @@ class GenerationResult(NamedTuple):
     done: torch.Tensor  # (B,) bool — hit EOS before max tokens
     # weight version each request was admitted under
     weight_versions: Optional[np.ndarray] = None
+
+
+STATIC_GENERATE_UNPORTED = (
+    "Engine.generate is not ported yet (ROADMAP.md queue 1, item 4: the "
+    "static Engine, with prefill and the dense decode path); the port's "
+    "Engine has act only, and PagedEngine generates")
+
+
+class Engine:
+    """The static engine of the JAX package, as far as the closed-loop
+    action path needs it: the constructor and :meth:`act`.  The JAX
+    constructor's generation settings (max_new_tokens, temperature, top-k,
+    top-p, eos, pad) serve only ``generate``, so the port takes none of
+    them until that is ported (ROADMAP.md queue 1, item 4).
+
+    ``device`` defaults to the card; without CUDA the caller must pass
+    ``device="cpu"``, which runs the kernels' plain versions."""
+
+    def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+
+    def generate(self, params, prompt_tokens, prompt_lens=None, seed=None):
+        raise NotImplementedError(STATIC_GENERATE_UNPORTED)
+
+    @torch.no_grad()
+    def act(self, params, prompt_tokens, noise, *, action_lo: int,
+            action_hi: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One closed-loop policy step: a single forward over
+        ``prompt_tokens`` (B, S), the last position's logits in f32
+        masked to the action-token window ``[action_lo, action_hi)``, and
+        one Gumbel-max draw a row, ``argmax(logits + noise)``: what
+        ``jax.random.categorical`` draws from its own Gumbel noise.
+
+        ``noise``: the (B, V) Gumbel(0, 1) draws (V the padded vocab), or
+        a callable that maps V to them; a row's noise must depend on that
+        row's env alone for the draw not to depend on how the env batch
+        is chunked.  Returns (action_tokens (B,) int32, behaviour
+        logprobs (B,) f32), both on the engine's device."""
+        tokens = torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.long,
+                                 device=self.device)
+        logits, _ = M.forward(params, self.cfg, tokens)
+        last = logits[:, -1].float()
+        V = last.shape[-1]
+        idx = torch.arange(V, device=last.device)
+        last = torch.where((idx >= action_lo) & (idx < action_hi), last,
+                           NEG_INF)
+        g = noise(V) if callable(noise) else noise
+        toks = torch.argmax(last + g.to(last.device, torch.float32), dim=-1)
+        lse = torch.logsumexp(last, dim=-1)
+        lps = last.gather(-1, toks[:, None])[:, 0] - lse
+        return toks.to(torch.int32), lps
 
 
 class PagedEngine:

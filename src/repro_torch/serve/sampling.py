@@ -144,3 +144,20 @@ def request_noise(seeds: torch.Tensor, positions: torch.Tensor,
     h = _mix32(_mix32(key ^ v) + key)
     u = (h.double() + 0.5) / 2.0 ** 32
     return (-torch.log(-torch.log(u))).float()
+
+
+def act_noise(seed: int, rollout_round: int, cycle_step: int,
+              env_ids, V: int, device=None) -> torch.Tensor:
+    """(B, V) Gumbel(0, 1) noise for the closed-loop action draw of each
+    env in ``env_ids`` at (``rollout_round``, ``cycle_step``) under the
+    act path's base ``seed``: :func:`request_noise` with the row seed
+    ``mix32(mix32(mix32(seed) ^ round) ^ step)`` and the env id as the
+    position.  A row depends on its own env id alone, so any chunking of
+    the env batch draws the same noise, with the same bits on the CPU
+    and on CUDA.  (The JAX worker folds a threefry key by round, step
+    and env id instead: the two draw different actions.)"""
+    ids = torch.as_tensor(env_ids, dtype=torch.int64, device=device)
+    row = torch.tensor([seed], dtype=torch.int64, device=ids.device)
+    for v in (rollout_round, cycle_step):
+        row = _mix32(_mix32(row) ^ (int(v) & _M32))
+    return request_noise(row.expand(ids.shape[0]), ids, V)

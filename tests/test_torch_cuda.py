@@ -23,7 +23,7 @@ from repro_torch.models import forward, init_model
 from repro_torch.serve import PagedEngine
 from repro_torch.serve.sampling import request_noise
 from repro_torch.train import TrainHParams, policy_loss
-from repro_torch.utils.treeutil import tree_leaves, tree_map
+from repro_torch.utils.treeutil import tree_leaves, tree_map, tree_unflatten
 
 # one intra-op thread: the test workers share the host's cores, and more
 # threads in each oversubscribe them (the port's files take ~78 s under
@@ -74,6 +74,10 @@ def _paged_inputs(seed, B, H, KV, D, page, nb, dtype, dev):
     (8, 24, 8, 64, 16, 36),  # granite-moe-3b-a800m heads (3-way GQA)
     (1, 32, 4, 128, 16, 256),  # one 4096-token context: 16 tiles a split
     (3, 8, 2, 64, 64, 5),      # pages larger than the kernel's 32-key tile
+    # stablelm-12b heads at the RLHF engine's 64-page tables: D > 128
+    # takes a lane's second accumulator column, which lanes 0-7 carry
+    (8, 32, 8, 160, 16, 64),
+    (2, 8, 2, 256, 16, 5),     # K1's largest head_dim: both columns full
 ])
 def test_paged_attention_kernel_matches_plain(dev, B, H, KV, D, page, nb,
                                               dtype):
@@ -93,9 +97,10 @@ def test_paged_attention_kernel_matches_plain(dev, B, H, KV, D, page, nb,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,D", [(32, 4, 128), (24, 8, 64)])
+@pytest.mark.parametrize("H,KV,D", [(32, 4, 128), (24, 8, 64),
+                                    (32, 8, 160)])
 def test_paged_attention_kernel_split_edges(dev, H, KV, D, dtype):
-    """yi-9b's and granite-moe's heads at nb 64 (32-token tiles dealt to
+    """yi-9b's, granite-moe's and stablelm-12b's heads at nb 64 (32-token tiles dealt to
     8 splits): contexts that end mid-page, exactly on a tile boundary and
     one past it, and a batch in which only one row reaches the last
     split's tiles."""
@@ -341,15 +346,43 @@ FLASH_CASES = [
     (2, 32, 32, 300, 80, True, 64),    # zamba2 heads (MHA, D 80), window
     (2, 32, 32, 1024, 80, True, 4096),  # zamba2 train microbatch
 ]
-# the forward kernels also at the bf16 kernel's edges
-FLASH_FWD_CASES = FLASH_CASES + [
+# the kernels also at the bf16 kernel's edges
+FLASH_EDGE_CASES = [
     (2, 4, 2, 300, 40, True, 0),     # D 40: zero-padded to 48 in the kernel
     (1, 4, 2, 257, 100, True, 33),   # D 100: rows not 16-byte aligned
     (1, 8, 2, 2048, 128, True, 0),   # a long sequence
     (3, 8, 2, 1, 128, True, 0),      # one token at yi-9b's head width
+    (2, 32, 8, 300, 160, True, 64),  # stablelm-12b heads (D 160), tail, window
+    (1, 32, 8, 1024, 160, True, 0),  # stablelm-12b train microbatch
+    (2, 4, 2, 130, 150, False, 40),  # D 150: half of the third box is fill
+    (1, 4, 2, 200, 192, True, 70),   # the backward's widest head_dim
+]
+# the forward past the backward's limit, up to its own (wgmma's N of 256)
+FLASH_FWD_CASES = FLASH_CASES + FLASH_EDGE_CASES + [
+    (1, 4, 2, 200, 256, True, 50),
+    (2, 4, 1, 130, 250, False, 0),   # D % 16 != 0 at the top
 ]
 # and the backward at window 1, where every row sees one key
-FLASH_BWD_CASES = FLASH_FWD_CASES + [(2, 4, 4, 200, 128, True, 1)]
+FLASH_BWD_CASES = FLASH_CASES + FLASH_EDGE_CASES + [
+    (2, 4, 4, 200, 128, True, 1), (2, 4, 4, 100, 160, True, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_refuse_head_dim_past_their_limit(dev, dtype):
+    """The forward takes head_dim <= 256, the backward <= 192; past its
+    limit a wrapper raises, naming it, and launches nothing."""
+    f0, b0 = fa.flash_attention_bhsd.launches, fa.flash_attention_bwd.launches
+    q, k, v, dout = _flash_inputs(1, 1, 2, 1, 64, fa.MAX_HEAD_DIM + 8, dtype,
+                                  dev)
+    with pytest.raises(ValueError, match=f"1..{fa.MAX_HEAD_DIM}"):
+        fa.flash_attention_bhsd(q, k, v)
+    q, k, v, dout = _flash_inputs(1, 1, 2, 1, 64, fa.MAX_HEAD_DIM_BWD + 8,
+                                  dtype, dev)
+    out, lse = fa.flash_attention_bhsd(q, k, v)
+    with pytest.raises(ValueError, match=f"1..{fa.MAX_HEAD_DIM_BWD}"):
+        fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert fa.flash_attention_bhsd.launches == f0 + 1
+    assert fa.flash_attention_bwd.launches == b0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -998,8 +1031,9 @@ def test_ssm_engine_card_vs_cpu(dev, arch):
 # ---------------------------------------------------------------------------
 # the GRPO runner: two iterations on the card against the CPU
 # ---------------------------------------------------------------------------
-def _grpo_run(device, params, lr):
-    """A reduced-yi GRPORunner from ``params``, collocated, two
+def _grpo_run(device, params, lr, arch="yi-9b", async_depth=0):
+    """A reduced GRPORunner (yi-9b unless ``arch``) from ``params``,
+    collocated (or the async horizon at ``async_depth``), two
     iterations on ``device``, with an entropy bonus so that the actor
     learns while every reward is equal (random weights rarely answer
     right); returns (runner, per-call outputs of rollout and reward, and
@@ -1009,10 +1043,10 @@ def _grpo_run(device, params, lr):
     from repro_torch.train import AdamWConfig
 
     reset_router()
-    cfg = get_config("yi-9b").reduced()
+    cfg = get_config(arch).reduced()
     rl = GRPOConfig(batch_size=8, group_size=4, iterations=2,
                     max_new_tokens=8, mode="collocated", seed=0,
-                    profile_batches=(4, 8))
+                    profile_batches=(4, 8), async_depth=async_depth)
     runner = GRPORunner(cfg, rl, TrainHParams(
         optimizer=AdamWConfig(lr=lr), entropy_coef=0.01), device=device,
         params=tree_map(lambda t: t.to(device, copy=True), params))
@@ -1087,3 +1121,250 @@ def test_grpo_runner_card_vs_cpu(dev):
     np.testing.assert_allclose(lp[0], lp[1], atol=1e-3)
     assert [s.mean_reward for s in card.stats] == \
         [s.mean_reward for s in cpu.stats]
+
+
+def _grads(loss, leaves):
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
+def _first_update_matches(p1_card, p1_cpu, p0, grads, lr, held=0.5):
+    """p1 - p0 card vs CPU within 1 % wherever |g| is above 1e-3 of its
+    tensor's largest, over ``held`` of the elements with a gradient so
+    held (test_grpo_runner_card_vs_cpu's bar)."""
+    clear = total = 0
+    for a, b, p, g in zip(p1_card, p1_cpu, p0, grads):
+        sure = g.abs() > 1e-3 * g.abs().max()
+        torch.testing.assert_close((a - p)[sure], (b - p)[sure],
+                                   rtol=1e-2, atol=1e-2 * lr)
+        clear, total = clear + int(sure.sum()), total + int((g != 0).sum())
+    assert clear > held * total, (clear, total)
+    moved = max(float((a - p).abs().max()) for a, p in zip(p1_card, p0))
+    assert moved > 0.5 * lr, moved
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-370m"])
+def test_grpo_runner_moe_and_ssm_rollout_card_vs_cpu(dev, arch):
+    """The MoE and SSM rollout workers (``MoEPagedKVLayout``,
+    ``StateCacheLayout``) inside the runner on the card: every worker
+    there, the rollouts before the first update the CPU's token for
+    token, the rewards the CPU's, and the first update within 1 % where
+    the gradient is clear of rounding."""
+    lr = 1e-4
+    cfg = get_config(arch).reduced()
+    params = init_model(torch.Generator().manual_seed(3), cfg,
+                        torch.float32, "cpu")
+    cpu, cpu_log = _grpo_run("cpu", params, lr, arch)
+    card, card_log = _grpo_run(dev, params, lr, arch)
+    assert all(w.device.type == "cuda" for w in card.workers.values())
+    # the profile's calls (a warm-up and a timed call at 4 and at 8 rows,
+    # then its full chunk) come before any update
+    before = 5
+    for a, b in zip(card_log["rollout"][:before], cpu_log["rollout"][:before]):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+        np.testing.assert_allclose(a["logprobs"], b["logprobs"], atol=1e-3)
+    for a, b in zip(card_log["reward"][:before], cpu_log["reward"][:before]):
+        np.testing.assert_array_equal(a["rewards"], b["rewards"])
+    p0, chunk = cpu_log["actor"][0]
+    live = tree_map(lambda t: t.clone().requires_grad_(), params)
+    batch = {"tokens": torch.tensor(chunk["tokens"], dtype=torch.long)}
+    for k in ("old_logprobs", "advantages", "loss_mask"):
+        batch[k] = torch.tensor(chunk[k], dtype=torch.float32)
+    loss, _ = policy_loss(cfg, card.hp, live, batch)
+    # an expert's weights see only the tokens routed to it: most of their
+    # elements' gradients sit below 1e-3 of the tensor's largest
+    _first_update_matches(card_log["actor"][1][0], cpu_log["actor"][1][0],
+                          p0, _grads(loss, tree_leaves(live)), lr,
+                          held=0.25 if cfg.kind == "moe" else 0.5)
+    assert all(np.isfinite(v) for v in card.stats[-1].metrics.values())
+
+
+def test_grpo_async_horizon_card_vs_cpu(dev):
+    """async_depth=1 on the card: the horizon's first rollout (version 0
+    on both) the CPU's token for token, tags monotone and at most one
+    version stale, every metric finite, and the published snapshot the
+    actor's params in storage of its own."""
+    lr = 1e-4
+    cfg = get_config("yi-9b").reduced()
+    params = init_model(torch.Generator().manual_seed(5), cfg,
+                        torch.float32, "cpu")
+    cpu, cpu_log = _grpo_run("cpu", params, lr, async_depth=1)
+    card, card_log = _grpo_run(dev, params, lr, async_depth=1)
+    assert all(w.device.type == "cuda" for w in card.workers.values())
+    # the profile's five calls come before any update
+    assert len(card_log["rollout"]) == len(cpu_log["rollout"]) == 7
+    for a, b in zip(card_log["rollout"][:5], cpu_log["rollout"][:5]):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    tags = [int(c["weight_versions"].max()) for c in card_log["rollout"][5:]]
+    assert tags == sorted(tags) and tags[0] == 0, tags
+    assert card._driver.version == 2
+    assert card._driver.queue.max_observed_staleness <= 1
+    assert all(np.isfinite(v) for s in card.stats for v in s.metrics.values())
+    version, snap = card._published
+    for a, b in zip(tree_leaves(card.actor.params()), tree_leaves(snap)):
+        assert a.is_cuda and torch.equal(a, b)
+        assert a.data_ptr() != b.data_ptr()
+
+
+def _rlhf_run(device, params, critic_params, lr):
+    """A reduced-stablelm RLHFRunner from the given actor and critic
+    params, collocated, profile + plan + one iteration on ``device``;
+    returns (runner, per-call outputs of each stage, and per-call (params
+    before, chunk) of the actor and of the critic's value step, on the
+    CPU)."""
+    from repro_torch.comm.primitives import reset_router
+    from repro_torch.rl import PPOConfig, RLHFRunner
+    from repro_torch.train import AdamWConfig
+
+    reset_router()
+    cfg = get_config("stablelm-12b").reduced()
+    runner = RLHFRunner(
+        cfg, PPOConfig(batch_size=8, iterations=1, max_new_tokens=6,
+                       mode="collocated", profile_batches=(4, 8)),
+        TrainHParams(optimizer=AdamWConfig(lr=lr, clip_norm=1.0),
+                     kl_coef=0.05, entropy_coef=0.02),
+        device=device,
+        params=tree_map(lambda t: t.to(device, copy=True), params),
+        critic_params=tree_map(lambda t: t.to(device, copy=True),
+                               critic_params))
+    log = {n: [] for n in runner.task_fns}
+    log["critic"] = []
+
+    def before(w, c):
+        return ([t.cpu().clone() for t in tree_leaves(w.get_state("params"))],
+                {k: np.array(v) for k, v in c.items() if k != "metrics"})
+
+    def wrap(name, fn):
+        def run(w, c):
+            if name == "actor":
+                log[name].append(before(w, c))
+            out = fn(w, c)
+            if name != "actor":
+                log[name].append({k: np.array(v) for k, v in out.items()
+                                  if k != "metrics"})
+            return out
+        return run
+
+    runner.task_fns = {n: wrap(n, f) for n, f in runner.task_fns.items()}
+    train_value = runner.critic.train_value
+
+    def critic_step(c):
+        log["critic"].append(before(runner.critic, c))
+        return train_value(c)
+
+    runner.critic.train_value = critic_step
+    runner.run(verbose=False)
+    return runner, log
+
+
+def test_rlhf_runner_card_vs_cpu(dev):
+    """Reduced stablelm-12b through the RLHF diamond on the card: every
+    worker there; rollout tokens, rewards and masks the CPU's; values,
+    reference and recomputed logprobs and the advantages within 1e-3;
+    the actor's first update (KL term on) and the critic's value step
+    within 1 % of the CPU's where the gradient is clear of rounding; the
+    reference bit for bit the initial actor."""
+    from repro_torch.rl.rlhf_workflow import critic_values, init_critic
+
+    lr = 1e-4
+    cfg = get_config("stablelm-12b").reduced()
+    params = init_model(torch.Generator().manual_seed(11), cfg,
+                        torch.float32, "cpu")
+    critic = init_critic(torch.Generator().manual_seed(12), cfg,
+                         torch.float32, "cpu")
+    cpu, cpu_log = _rlhf_run("cpu", params, critic, lr)
+    card, card_log = _rlhf_run(dev, params, critic, lr)
+    assert all(w.device.type == "cuda" for w in card.workers.values())
+    for a, b in zip(card_log["rollout"], cpu_log["rollout"]):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    for stage, key in (("inference", "old_logprobs"),
+                       ("reference", "ref_logprobs"), ("critic_v", "values"),
+                       ("reward", "advantages"), ("reward", "returns")):
+        for a, b in zip(card_log[stage], cpu_log[stage]):
+            np.testing.assert_allclose(a[key], b[key], atol=1e-3,
+                                       err_msg=key)
+    for a, b in zip(card_log["reward"], cpu_log["reward"]):
+        for k in ("rewards", "loss_mask"):
+            np.testing.assert_array_equal(a[k], b[k])
+    p0, chunk = cpu_log["actor"][0]
+    live = tree_map(lambda t: t.clone().requires_grad_(), params)
+    batch = {"tokens": torch.tensor(chunk["tokens"], dtype=torch.long)}
+    for k in ("old_logprobs", "advantages", "loss_mask", "ref_logprobs"):
+        batch[k] = torch.tensor(chunk[k], dtype=torch.float32)
+    loss, metrics = policy_loss(cfg, card.hp, live, batch)
+    assert "kl_ref" in metrics
+    _first_update_matches(card_log["actor"][1][0], cpu_log["actor"][1][0],
+                          p0, _grads(loss, tree_leaves(live)), lr)
+    # the critic's one value step (lr 1e-3), from the same params
+    c0, cchunk = cpu_log["critic"][0]
+    live = tree_map(lambda t: t.clone().requires_grad_(), critic)
+    mask = torch.tensor(cchunk["loss_mask"])
+    v = critic_values(live, cfg, torch.tensor(cchunk["tokens"]).long())
+    vloss = (torch.square(v - torch.tensor(cchunk["returns"])) * mask
+             ).sum() / mask.sum().clamp(min=1.0)
+    _first_update_matches(
+        [t.cpu() for t in tree_leaves(card.critic.get_state("params"))],
+        tree_leaves(cpu.critic.get_state("params")), c0,
+        _grads(vloss, tree_leaves(live)), 1e-3)
+    np.testing.assert_allclose(card.stats[0].value_loss,
+                               cpu.stats[0].value_loss, rtol=1e-3)
+    for r, p in zip(tree_leaves(card.reference.get_state("params")),
+                    tree_leaves(params)):
+        assert r.is_cuda and torch.equal(r.cpu(), p)
+
+
+def test_embodied_runner_card_vs_cpu(dev):
+    """The reduced embodied policy (stablelm's family at d_model 128)
+    through the simulator-policy cycle on the card, hybrid: every worker
+    there; under the port's own act noise the actions, rewards and the
+    terminated/truncated split the CPU's, logprobs within 1e-4; the
+    update within 1 % where the gradient is clear of rounding."""
+    from repro_torch.comm.primitives import reset_router
+    from repro_torch.rl import EmbodiedPPOConfig, EmbodiedPPORunner
+    from repro_torch.rl.embodied_workflow import default_policy_config
+
+    cfg = default_policy_config()
+    params = init_model(torch.Generator().manual_seed(13), cfg,
+                        torch.float32, "cpu")
+    runs = []
+    for device in ("cpu", dev):
+        reset_router()
+        r = EmbodiedPPORunner(
+            EmbodiedPPOConfig(num_envs=16, horizon=6, iterations=1,
+                              mode="hybrid", max_steps=4,
+                              profile_batches=(8, 16)),
+            device=device,
+            params=tree_map(lambda t: t.to(device, copy=True), params))
+        r.profile()
+        r.plan_execution()
+        p0 = [t.cpu().clone() for t in tree_leaves(r.actor.params())]
+        r._sync_weights()
+        out = r.controller.execute(r.plan, r.workers, r.task_fns,
+                                   r.make_batch(),
+                                   cycle_specs=r.cycle_specs())
+        runs.append((r, p0, out))
+    (cpu, p0_cpu, o_cpu), (card, p0_card, o_card) = runs
+    assert all(w.device.type == "cuda" for w in card.workers.values())
+    assert card.controller.last_cycle_log[0][1] == "hybrid"
+    for k in ("action_tokens", "rewards", "terminated", "truncated",
+              "tokens", "advantages"):
+        np.testing.assert_array_equal(np.asarray(o_card[k]),
+                                      np.asarray(o_cpu[k]), err_msg=k)
+    np.testing.assert_allclose(o_card["action_logprobs"],
+                               o_cpu["action_logprobs"], atol=1e-4)
+    assert len(np.unique(o_card["action_tokens"])) > 1
+    # the profile trained both actors alike from the same init: the
+    # iteration's update from there
+    for a, b in zip(p0_card, p0_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    live = tree_map(lambda t: t.clone().requires_grad_(),
+                    tree_unflatten(params, p0_cpu))
+    batch = {"tokens": torch.tensor(np.asarray(o_cpu["tokens"])).long()}
+    for k in ("old_logprobs", "advantages", "loss_mask"):
+        batch[k] = torch.tensor(np.asarray(o_cpu[k]), dtype=torch.float32)
+    loss, _ = policy_loss(cfg, cpu.hp, live, batch)
+    _first_update_matches(
+        [t.cpu() for t in tree_leaves(card.actor.params())],
+        tree_leaves(cpu.actor.params()), p0_cpu,
+        _grads(loss, tree_leaves(live)), cpu.rl.lr)

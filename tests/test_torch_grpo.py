@@ -27,6 +27,7 @@ from repro_torch.core import Channel
 from repro_torch.core.profiler import CostModel
 from repro_torch.core.scheduler import leaves
 from repro_torch.rl import GRPOConfig, GRPORunner
+from repro_torch.rl.advantage import staleness_importance_weights
 from repro_torch.train import AdamWConfig, TrainHParams
 from repro_torch.utils.treeutil import pytree_leaves
 
@@ -275,3 +276,65 @@ def test_async_depth_one_keeps_version_tags_monotone():
     assert version == 5
     for a, s in zip(pytree_leaves(tr.actor.params()), pytree_leaves(snap)):
         assert torch.equal(a, s) and a.data_ptr() != s.data_ptr()
+
+
+def test_async_offpolicy_alias_and_fields_match_jax():
+    for kw in ({}, {"async_offpolicy": True},
+               {"async_offpolicy": True, "async_depth": 2},
+               {"staleness_correction": False}):
+        t, j = GRPOConfig(**kw), JGRPOConfig(**kw)
+        assert (t.async_depth, t.async_offpolicy, t.staleness_correction) \
+            == (j.async_depth, j.async_offpolicy, j.staleness_correction)
+    assert GRPOConfig(async_offpolicy=True).async_depth == 1
+
+
+@pytest.mark.parametrize("correct", [True, False])
+def test_staleness_correction_only_when_asked(correct):
+    """async_depth=1: with the correction off, every chunk reaches the
+    actor with the reward worker's advantages untouched and is never
+    re-scored, as the JAX runner leaves it; with it on, the stale chunks
+    are re-scored at the current params and their advantages damped."""
+    _, tcfg = _cfgs()
+    rl = GRPOConfig(batch_size=16, group_size=4, iterations=4,
+                    max_new_tokens=3, mode="collocated", seed=0,
+                    profile_batches=(8,), async_depth=1,
+                    staleness_correction=correct)
+    tr = GRPORunner(tcfg, rl, TrainHParams(
+        optimizer=AdamWConfig(lr=LR, clip_norm=1.0), entropy_coef=0.02),
+        device="cpu")
+    tr.data.max_operand = 3
+    tr.data.add_only = True
+    log = _record(tr)
+    tr.profile()
+    tr.plan_execution()
+    for calls in log.values():
+        calls.clear()
+    seen = []
+    actor_fn = tr.task_fns["actor"]
+
+    def actor(w, c):
+        seen.append({k: np.array(c[k]) for k in c if k != "metrics"}
+                    | {"rescored": "target_logprobs" in c})
+        return actor_fn(w, c)
+
+    tr.task_fns["actor"] = actor
+    tr.run_loop(verbose=False)
+    by_tokens = {c["tokens"].tobytes(): c["advantages"]
+                 for c in log["reward"]}
+    stale = [c for c in seen if c["rescored"]]
+    if not correct:
+        assert not stale
+        for c in seen:
+            np.testing.assert_array_equal(
+                c["advantages"], by_tokens[c["tokens"].tobytes()])
+    else:
+        assert stale  # the horizon ran ahead of the trainer
+        for c in stale:  # damped by the truncated importance weight
+            rho = staleness_importance_weights(
+                c["old_logprobs"], c["target_logprobs"], c["loss_mask"],
+                staleness=1, clip_ratio=rl.staleness_clip)
+            np.testing.assert_array_equal(
+                c["advantages"], by_tokens[c["tokens"].tobytes()] * rho)
+        # re-scored at params newer than the behaviour's
+        assert any(not np.array_equal(c["target_logprobs"],
+                                      c["old_logprobs"]) for c in stale)

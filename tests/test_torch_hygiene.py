@@ -103,8 +103,16 @@ def test_port_imports_with_jax_blocked():
 def test_runtime_entry_points_raise_without_cuda_and_no_device(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.core import Worker
-    from repro_torch.rl import GRPOConfig, GRPORunner
+    from repro_torch.rl import (
+        EmbodiedPPOConfig,
+        EmbodiedPPORunner,
+        GRPOConfig,
+        GRPORunner,
+        PPOConfig,
+        RLHFRunner,
+    )
     from repro_torch.rl.workers import ActorWorker, RolloutWorker
+    from repro_torch.serve import Engine
     from repro_torch.train import TrainHParams
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,6 +120,17 @@ def test_runtime_entry_points_raise_without_cuda_and_no_device(monkeypatch):
     rl = GRPOConfig(batch_size=8, group_size=4, iterations=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         GRPORunner(cfg, rl)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RLHFRunner(cfg, PPOConfig(batch_size=8, iterations=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbodiedPPORunner(EmbodiedPPOConfig(num_envs=4, iterations=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg)
+    assert Engine(cfg, device="cpu").device.type == "cpu"
+    assert RLHFRunner(cfg, PPOConfig(batch_size=8, iterations=1),
+                      device="cpu").reference.device.type == "cpu"
+    assert EmbodiedPPORunner(EmbodiedPPOConfig(num_envs=4, iterations=1),
+                             device="cpu").policy.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         RolloutWorker("r/0", cfg=cfg)
     with pytest.raises(RuntimeError, match="CUDA"):

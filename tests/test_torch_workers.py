@@ -397,6 +397,13 @@ def test_left_out_items_raise_naming_their_roadmap_item():
     windowed = tcfg.replace(sliding_window=4)
     with pytest.raises(NotImplementedError, match="item 4"):
         RolloutWorker("r/0", cfg=windowed, device="cpu")
+    from repro_torch.serve import Engine
+    with pytest.raises(NotImplementedError, match="item 4"):
+        Engine(tcfg, device="cpu").generate(None, np.zeros((1, 4), np.int32))
+    static = RolloutWorker("r/1", cfg=tcfg, engine="static", device="cpu")
+    static.update_weights({})
+    with pytest.raises(NotImplementedError, match="item 4"):
+        static.generate({"prompt_tokens": np.zeros((1, 4), np.int32)})
     rl = GRPOConfig(batch_size=8, group_size=4, iterations=1)
     with pytest.raises(NotImplementedError, match="item 6"):
         GRPORunner(tcfg, rl, device="cpu", checkpoint_dir="ckpt")
