@@ -31,13 +31,25 @@ Phases, one line of output each (more for the kernels):
                 stablelm-12b's vocabulary (100352), paged attention at
                 its D=160 heads (also at the rlhf phase's decode batch)
                 and flash attention at the f32 shapes of the rlhf and
-                embodied phases;
+                embodied phases; sampling at whisper-large-v3's and
+                llama-3.2-vision-90b's vocabularies, and flash attention
+                bidirectional at whisper's encoder heads over its 1500
+                frames (forward in bf16, forward and backward in f32),
+                and causal at the encdec and vlm phases' own shapes
+                (whisper's decoder, 8 x 448 bf16 and 2 x 448 f32 with
+                the backward; llama-3.2-vision's 64 / 8 heads of 128,
+                8 x 512 bf16);
   3. ref        reduced yi-9b, granite-moe, mamba2 and zamba2 served on the
                 card and on the CPU from the same weights: the same tokens;
-  4. ref-train  the same reduced models in f32: recomputed logprobs and one
+                the static ``Engine`` on reduced yi-9b (also with a window
+                of 8), granite-moe, mamba2, zamba2, llama-3.2-vision and
+                whisper, card against CPU, and at temperature 0 against
+                the card's paged engine;
+  4. ref-train  the same reduced models in f32 (and llama-3.2-vision and
+                whisper with their embeddings): recomputed logprobs and one
                 train step (two microbatches) on the card against the CPU,
-                and (all but the MoE) the engine's logprobs against the
-                recompute;
+                and (the dense and SSM ones) the engine's logprobs against
+                the recompute;
 then for yi-9b (48 layers, 8 trained), granite-moe-3b-a800m (32 layers, 16
 trained), mamba2-370m (48 SSM layers, all trained) and zamba2-2.7b (54 SSM
 layers in 9 groups with a shared attention block, 24 trained), each from
@@ -50,6 +62,11 @@ random weights:
                 (the SSM and hybrid models on 4 of them, cut to 64
                 prompt tokens, with 16 new tokens: their prompts go
                 through the decode batch a token a step);
+     static     (yi-9b and granite-moe) the static ``Engine`` on 8 prompts
+                of 64 tokens with 32 new: tokens/s, launches gated exactly
+                (K2 once a round; granite's K5 a layer a decode step), and
+                its rollouts' recomputed logprobs against its own at the
+                paged engine's bars;
   7. recompute  16 rollouts of 448 + 64 tokens from the engine, scored by
                 ``make_prefill_step`` at full depth: tokens/s (median of
                 five passes), flash and SSD-scan launches, and the
@@ -58,6 +75,14 @@ random weights:
                 and AdamW: three GRPO steps of 4 x 1024 tokens in two
                 microbatches, step time, peak memory and kernel launches
                 per step;
+then the kinds only the static engine serves:
+  encdec        whisper-large-v3 at full size: recompute of 8 x 448
+                tokens with 1500 random frames (K3 64 a pass), a static
+                generate (K2 only), three f32 + AdamW train steps with
+                frames;
+  vlm           llama-3.2-vision-90b at full width cut to one group (4 self
+                + 1 cross layer): recompute of 8 x 512 tokens with 1024
+                random image tokens (K3 4 a pass), a static generate;
 and last the runtime end to end:
   9. grpo       ``GRPORunner`` on yi-9b at full width cut to 8 layers (f32
                 params and AdamW in the actor, copies synced into the
@@ -392,8 +417,9 @@ GRANITE_HEADS = (24, 8, 64)
 
 
 def flash_case(g, dtype, B: int, S: int, window: int, backward: bool,
-               heads=YI_HEADS):
-    """K3 at ``heads`` = (H, KV, D), causal, against its plain version, on
+               heads=YI_HEADS, causal: bool = True):
+    """K3 at ``heads`` = (H, KV, D), causal unless ``causal`` is False,
+    against its plain version, on
     (B, H, S, D) views of model-layout (B, S, H, D) tensors as
     ``ops.flash_attention`` passes them; with ``backward`` also dq, dk and
     dv against autograd of the plain version for a random output
@@ -406,7 +432,7 @@ def flash_case(g, dtype, B: int, S: int, window: int, backward: bool,
     name = str(dtype).split(".")[-1]
     q, k, v, dout = (torch.randn((B, S, h, D), generator=g, device="cuda")
                      .to(dtype).transpose(1, 2) for h in (H, KV, KV, H))
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     out, lse = fa.flash_attention_bhsd(q, k, v, **kw)
     leaves = [t.detach().requires_grad_(backward) for t in (q, k, v)]
     want, want_lse = fa.flash_attention_plain(*leaves, **kw)
@@ -421,7 +447,8 @@ def flash_case(g, dtype, B: int, S: int, window: int, backward: bool,
     case = dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse, leaves=leaves,
                 want=want, err=err, line=(
                     f"kernels: flash_attention {name} B={B} H={H} KV={KV} "
-                    f"S={S} D={D} causal window={window} (model layout): "
+                    f"S={S} D={D} {'causal' if causal else 'bidirectional'} "
+                    f"window={window} (model layout): "
                     f"fwd max|err|={err:.3g} (tol {tol}), lse "
                     f"{lse_err:.3g}"))
     if not backward:
@@ -445,16 +472,22 @@ def flash_case(g, dtype, B: int, S: int, window: int, backward: bool,
     return case
 
 
-def flash_flops(B: int, S: int, heads) -> float:
-    """Operations of causal K3 forward: 4 * D flops per live (query, key)
-    pair (QK^T and PV)."""
+def flash_pairs(S: int, causal: bool = True) -> int:
+    """Live (query, key) pairs of one head: S(S+1)/2 under the causal
+    mask, S^2 bidirectional."""
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def flash_flops(B: int, S: int, heads, causal: bool = True) -> float:
+    """Operations of K3's forward: 4 * D flops per live (query, key) pair
+    (QK^T and PV)."""
     H, _, D = heads
-    return 4.0 * B * H * D * (S * (S + 1) // 2)
+    return 4.0 * B * H * D * flash_pairs(S, causal)
 
 
-def flash_bounds(dtype, B: int, S: int, heads=YI_HEADS):
-    """(forward, backward) bounds of causal K3 at ``heads``: each a
-    (ms, 'bytes' or 'operations') pair."""
+def flash_bounds(dtype, B: int, S: int, heads=YI_HEADS, causal: bool = True):
+    """(forward, backward) bounds of K3 at ``heads``: each a (ms, 'bytes'
+    or 'operations') pair."""
     import torch
 
     H, KV, D = heads
@@ -462,7 +495,7 @@ def flash_bounds(dtype, B: int, S: int, heads=YI_HEADS):
     elem = torch.finfo(dtype).bits // 8
     # live (query, key) pairs of this mask; 2 * D flops per pair and
     # product: forward QK^T and PV, backward S, dP, dV, dK and dQ
-    pairs = S * (S + 1) // 2
+    pairs = flash_pairs(S, causal)
     act = B * H * S * D * elem
     kv_bytes = 2 * B * KV * S * D * elem
     # forward: reads q, k, v; writes out, lse.  Backward: reads q, out,
@@ -1056,6 +1089,60 @@ def check_flash_zamba2() -> None:
         torch.cuda.empty_cache()
 
 
+def flash_timed(c: dict, dtype, B: int, S: int, heads,
+                causal: bool = True) -> str:
+    """K3 on a :func:`flash_case`'s inputs timed beside its plain version
+    and ``scaled_dot_product_attention``, with the bound (over S(S+1)/2
+    or S^2 pairs by the mask); with the case's backward also the
+    backward beside the plain one's and SDPA's.  Returns the log line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    H, KV, _ = heads
+    q, k, v, dout = (c[n] for n in ("q", "k", "v", "dout"))
+    lib = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*lib, is_causal=causal,
+                                              enable_gqa=KV != H)
+
+    ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=causal))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                        causal=causal), n=5)
+    with torch.no_grad():
+        lib_ms = time_ms(sdpa)
+    (fb, fby), (bb, bby) = flash_bounds(dtype, B, S, heads, causal)
+    tf = flash_flops(B, S, heads, causal) / 1e9
+    pairs = "S(S+1)/2" if causal else "S^2"
+    line = (f"{c['line']}; fwd kernel={ms:.4f} ms ({tf / ms:.1f} "
+            f"TFLOP/s) plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms "
+            f"({tf / lib_ms:.1f} TFLOP/s) bound={fb:.4f} ms ({fby}, {pairs} "
+            f"pairs; kernel at {100 * fb / ms:.1f} % of it)")
+    if "grad_err" in c:
+        bms = time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, c["out"], c["lse"], dout, causal=causal))
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            c["want"], c["leaves"], dout, retain_graph=True), n=5)
+        lib_out = sdpa()
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, lib, dout, retain_graph=True))
+        line += (f"; bwd kernel={bms:.4f} ms plain={plain_bwd_ms:.4f} ms "
+                 f"sdpa bwd={lib_bwd_ms:.4f} ms bound={bb:.4f} ms ({bby})")
+    return line
+
+
+def fold_flash_errors(results: dict, c: dict) -> None:
+    """A :func:`flash_case`'s errors into K3's entries (the largest over
+    the shapes checked)."""
+    results["flash_fwd"]["max_abs_err"] = max(
+        results["flash_fwd"]["max_abs_err"], c["err"])
+    if "grad_err" in c:
+        results["flash_bwd"]["max_abs_err"] = max(
+            results["flash_bwd"]["max_abs_err"], c["grad_err"])
+
+
 STABLELM_HEADS = (32, 8, 160)  # stablelm-12b's (H, KV, D): d 5120 / 32
 # contexts of the rlhf phase's decode batch (one slot idle)
 RLHF_DECODE_CTX = (0, 9, 12, 17, 24, 31, 39, 40)
@@ -1065,12 +1152,10 @@ def check_flash_stablelm(results: dict) -> None:
     """K3 at stablelm-12b's heads (32 / 8 KV of D 160: three 64-column TMA
     boxes, the last half fill, and P V as two products), causal: the
     recompute's forward (16 x 512, bf16) and the train microbatch's
-    forward and backward (2 x 1024, f32), against the plain versions,
-    timed beside the plain forward and ``scaled_dot_product_attention``
-    with the bound.  Its errors count in K3's entries (the largest over
-    the shapes checked)."""
+    forward and backward (2 x 1024, f32), against the plain versions and
+    timed (:func:`flash_timed`); then the f32 shapes of the rlhf and
+    embodied phases.  Its errors count in K3's entries."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
@@ -1079,40 +1164,11 @@ def check_flash_stablelm(results: dict) -> None:
     for dtype, B, S, backward in ((torch.bfloat16, 16, 512, False),
                                   (torch.float32, 2, 1024, True)):
         c = flash_case(g, dtype, B, S, 0, backward, heads)
-        q, k, v = c["q"], c["k"], c["v"]
-        lib = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(*lib, is_causal=True,
-                                                  enable_gqa=True)
-
-        ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                            causal=True), n=5)
-        with torch.no_grad():
-            lib_ms = time_ms(sdpa)
-        (fb, fby), (bb, bby) = flash_bounds(dtype, B, S, heads)
-        tf = flash_flops(B, S, heads) / 1e9
-        line = (f"{c['line']}; fwd kernel={ms:.4f} ms ({tf / ms:.1f} "
-                f"TFLOP/s) plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms "
-                f"({tf / lib_ms:.1f} TFLOP/s) bound={fb:.4f} ms ({fby}; "
-                f"kernel at {100 * fb / ms:.1f} % of it)")
-        results["flash_fwd"]["max_abs_err"] = max(
-            results["flash_fwd"]["max_abs_err"], c["err"])
-        if backward:
-            bms = time_ms(lambda: fa.flash_attention_bwd(
-                q, k, v, c["out"], c["lse"], c["dout"], causal=True))
-            lib_out = sdpa()
-            lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
-                lib_out, lib, c["dout"], retain_graph=True))
-            line += (f"; bwd kernel={bms:.4f} ms sdpa bwd={lib_bwd_ms:.4f} "
-                     f"ms bound={bb:.4f} ms ({bby})")
-            results["flash_bwd"]["max_abs_err"] = max(
-                results["flash_bwd"]["max_abs_err"], c["grad_err"])
-            del lib_out
-        log(line + f" (stablelm-12b; head_dim limits: forward "
-            f"{fa.MAX_HEAD_DIM}, backward {fa.MAX_HEAD_DIM_BWD})")
-        del c, lib
+        fold_flash_errors(results, c)
+        log(flash_timed(c, dtype, B, S, heads) + f" (stablelm-12b; "
+            f"head_dim limits: forward {fa.MAX_HEAD_DIM}, backward "
+            f"{fa.MAX_HEAD_DIM_BWD})")
+        del c
         torch.cuda.empty_cache()
     # the f32 shapes the rlhf and embodied phases give K3: the RLHF
     # passes and train step (16 x 40), the embodied act (64 x 5, 32 x 5
@@ -1120,15 +1176,73 @@ def check_flash_stablelm(results: dict) -> None:
     for B, S, backward in ((16, 40, True), (64, 5, False), (32, 5, False),
                            (1024, 6, True)):
         c = flash_case(g, torch.float32, B, S, 0, backward, heads)
-        results["flash_fwd"]["max_abs_err"] = max(
-            results["flash_fwd"]["max_abs_err"], c["err"])
-        if backward:
-            results["flash_bwd"]["max_abs_err"] = max(
-                results["flash_bwd"]["max_abs_err"], c["grad_err"])
+        fold_flash_errors(results, c)
         log(c["line"] + " (stablelm-12b, a shape of the rlhf or embodied "
             "phase)")
         del c
     torch.cuda.empty_cache()
+
+
+WHISPER_HEADS = (20, 20, 64)  # whisper-large-v3's (H, KV, D): d 1280 / 20
+WHISPER_FRAMES = 1500  # its encoder's sequence (the stub frontend's frames)
+WHISPER_RECOMPUTE = (8, 448)  # rollouts x tokens (whisper's max_seq_len)
+WHISPER_TRAIN = (4, 224, 224)  # sequences, prompt and response tokens
+VLM_HEADS = (64, 8, 128)  # llama-3.2-vision-90b's self layers: d 8192 / 64
+VLM_RECOMPUTE = (8, 512)  # rollouts x tokens
+
+
+def check_flash_whisper(results: dict) -> None:
+    """K3 at whisper-large-v3's encoder heads (20 / 20 of D 64),
+    bidirectional over its 1500 frames (a 28-row tail on 64-row tiles):
+    the recompute's forward (8 x 1500, bf16) and the train microbatch's
+    forward and backward (2 x 1500, f32), against the plain versions and
+    timed (:func:`flash_timed`, the bound over all S^2 pairs), with the
+    backward's f32 workspace.  Its errors count in K3's entries."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    heads, S = WHISPER_HEADS, WHISPER_FRAMES
+    H, _, D = heads
+    for dtype, B, backward in ((torch.bfloat16, 8, False),
+                               (torch.float32, 2, True)):
+        c = flash_case(g, dtype, B, S, 0, backward, heads, causal=False)
+        fold_flash_errors(results, c)
+        line = flash_timed(c, dtype, B, S, heads, causal=False)
+        if backward:
+            ws = 4 * _build.library().flash_attention_bwd_workspace(
+                B, H, H, S, D, 0, 0)
+            line += f"; f32 workspace (stored dS) {ws / 1e6:.1f} MB"
+        log(line + " (whisper-large-v3 encoder)")
+        del c
+        torch.cuda.empty_cache()
+
+
+def check_flash_phases(results: dict) -> None:
+    """K3 at the causal shapes the encdec and vlm phases give it: the
+    whisper-large-v3 decoder's self-attention (20 / 20 of D 64) in the
+    recompute (8 x 448, bf16) and the train microbatch (2 x 448, f32,
+    forward and backward), and llama-3.2-vision-90b's self layers (64 / 8
+    KV of D 128) in the recompute (8 x 512, bf16); against the plain
+    versions and timed (:func:`flash_timed`).  Its errors count in K3's
+    entries."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    n, p, r = WHISPER_TRAIN
+    for heads, dtype, (B, S), backward, where in (
+            (WHISPER_HEADS, torch.bfloat16, WHISPER_RECOMPUTE, False,
+             "whisper-large-v3 decoder, the encdec recompute"),
+            (WHISPER_HEADS, torch.float32, (n // 2, p + r), True,
+             "whisper-large-v3 decoder, the encdec train microbatch"),
+            (VLM_HEADS, torch.bfloat16, VLM_RECOMPUTE, False,
+             "llama-3.2-vision-90b self layers, the vlm recompute")):
+        c = flash_case(g, dtype, B, S, 0, backward, heads)
+        fold_flash_errors(results, c)
+        log(flash_timed(c, dtype, B, S, heads) + f" ({where})")
+        del c
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1165,6 +1279,87 @@ def check_reference(arch: str = "yi-9b", sampling=((0.0, 0, 1.0),
         assert err <= 1e-3, f"card and CPU logprobs differ by {err}"
         log(f"ref: reduced {arch} f32 T={temp} top_k={k} top_p={p}: card "
             f"tokens == CPU tokens, max|lp diff|={err:.3g} (tol 1e-3)")
+
+
+def open_gates(params):
+    """A VLM's cross gates at 0.5: ``init_model`` zeros them, as JAX's
+    does, and tanh(0) would make every cross layer the identity."""
+    if "cross_layers" in params:
+        params["cross_layers"]["gate"].fill_(0.5)
+    return params
+
+
+def embeddings(cfg, B: int, g, dtype, device):
+    """The stub frontend's output as a batch's entries: (B, 1024, d) image
+    tokens for a VLM, (B, 1500, d) audio frames for an encoder-decoder
+    (the reduced configs' 16 and 32), from the generator ``g``; nothing
+    for the other kinds."""
+    import torch
+
+    if cfg.kind == "vlm":
+        key, n = "image_embeds", cfg.num_image_tokens
+    elif cfg.kind == "encdec":
+        key, n = "frame_embeds", cfg.encoder_seq_len
+    else:
+        return {}
+    x = torch.randn((B, n, cfg.d_model), generator=g, device=g.device)
+    return {key: x.to(device, dtype)}
+
+
+STATIC_REF = (("yi-9b", 0), ("yi-9b", 8), ("granite-moe-3b-a800m", 0),
+              ("mamba2-370m", 0), ("zamba2-2.7b", 0),
+              ("llama-3.2-vision-90b", 0), ("whisper-large-v3", 0))
+
+
+def check_static_reference(arch: str, window: int = 0) -> None:
+    """Reduced ``arch`` (``window`` its sliding window) in f32 from the
+    same weights through the static ``Engine`` on the card and on the
+    CPU, at T 0 and (but the MoE) at T 1, top-k 8, top-p 0.9: the same
+    tokens, logprobs within 1e-3, K2 once a round on the card; at T 0 the
+    card's static tokens equal its ``PagedEngine``'s where a layout covers
+    the arch.  Prompts of 23 tokens, one row left-padded by 7; 12 new."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.models import init_model
+    from repro_torch.serve import Engine, PagedEngine, covers
+    from repro_torch.utils.treeutil import tree_map
+
+    cfg = get_config(arch).reduced().replace(sliding_window=window)
+    cpu_params = open_gates(init_model(torch.Generator().manual_seed(SEED),
+                                       cfg, torch.float32, "cpu"))
+    gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params)
+    prompts = np.random.default_rng(SEED).integers(3, cfg.vocab_size,
+                                                   size=(6, 23))
+    prompts[1, :7] = 0
+    for temp, k, p in ((0.0, 0, 1.0),) if cfg.moe is not None else (
+            (0.0, 0, 1.0), (1.0, 8, 0.9)):
+        kw = dict(max_new_tokens=12, temperature=temp, top_k=k, top_p=p)
+        ks.fused_sample_bv.launches = 0
+        a = Engine(cfg, device="cuda", **kw).generate(gpu_params, prompts,
+                                                      seed=SEED)
+        assert ks.fused_sample_bv.launches == 12, ks.fused_sample_bv.launches
+        b = Engine(cfg, device="cpu", **kw).generate(cpu_params, prompts,
+                                                     seed=SEED)
+        assert torch.equal(a.tokens, b.tokens), \
+            f"static {arch} w={window} T={temp}: card and CPU tokens differ"
+        err = (a.logprobs - b.logprobs).abs().max().item()
+        assert err <= 1e-3, f"card and CPU logprobs differ by {err}"
+        paged = ""
+        if temp == 0.0 and covers(cfg):
+            c = PagedEngine(cfg, max_batch=4, page_size=4, max_new_tokens=12,
+                            temperature=0.0, prefill_chunk=8,
+                            device="cuda").generate(gpu_params, prompts,
+                                                    seed=SEED)
+            assert torch.equal(c.tokens, a.tokens), \
+                f"static {arch} T=0: static and paged tokens differ on the card"
+            paged = "; == the card's PagedEngine tokens"
+        log(f"ref: reduced {arch} window={window} f32 static Engine T={temp} "
+            f"top_k={k} top_p={p}: card tokens == CPU tokens, max|lp diff|="
+            f"{err:.3g} (tol 1e-3), fused_sample launches 12 (one a round)"
+            f"{paged}")
 
 
 def grpo_batch(rng, tokens, prompt_len: int, group_size: int):
@@ -1205,20 +1400,24 @@ def check_ref_train(arch: str = "yi-9b") -> None:
     from repro_torch.utils.treeutil import tree_leaves, tree_map
 
     cfg = get_config(arch).reduced()
-    cpu_params = init_model(torch.Generator().manual_seed(SEED + 1), cfg,
-                            torch.float32, "cpu")
+    cpu_params = open_gates(init_model(torch.Generator().manual_seed(SEED + 1),
+                                       cfg, torch.float32, "cpu"))
     rng = np.random.default_rng(SEED + 1)
     B, S, P = 4, 100, 40  # S is no multiple of the kernels' 64-row tiles
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (B, S)))
+    emb = embeddings(cfg, B, torch.Generator().manual_seed(SEED + 1),
+                     torch.float32, "cpu")
     prefill = make_prefill_step(cfg)
-    lp_cpu = prefill(cpu_params, {"tokens": tokens})
+    lp_cpu = prefill(cpu_params, {"tokens": tokens, **emb})
     gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params)
-    lp_gpu = prefill(gpu_params, {"tokens": tokens.cuda()}).cpu()
+    lp_gpu = prefill(gpu_params, {"tokens": tokens.cuda(), **{
+        k: v.cuda() for k, v in emb.items()}}).cpu()
     lp_err = (lp_gpu - lp_cpu).abs().max().item()
     # f32 both sides: cuBLAS and the CPU sum in other orders
     assert lp_err <= 1e-4, f"recompute: card vs CPU logprobs differ {lp_err}"
 
     batch = grpo_batch(rng, tokens, P, group_size=4)
+    batch.update(emb)
     noise = torch.from_numpy(0.2 * rng.standard_normal((B, S))).float()
     batch["old_logprobs"] = lp_cpu + noise  # clipping becomes active
     batch["ref_logprobs"] = lp_cpu - noise
@@ -1257,7 +1456,11 @@ def check_ref_train(arch: str = "yi-9b") -> None:
             f"diff={mu_err:.3g} (tol 1e-3)")
     if cfg.moe is not None:
         assert cm["aux_loss"] > 0, cm
-        log(line)
+    if cfg.moe is not None or emb:
+        # the static engine decodes a VLM or encoder-decoder against zero
+        # cross caches (JAX's passes no embeddings), so its logprobs are
+        # not the recompute's
+        log(line + (f" (with {', '.join(emb)})" if emb else ""))
         return
 
     eng = PagedEngine(cfg, max_batch=4, page_size=4, max_new_tokens=12,
@@ -1637,13 +1840,16 @@ def moe_f32_paths(cfg) -> None:
 
 def kernel_layers(cfg):
     """(K3 launches, K6 launches) of one forward of ``cfg``: one K3 per
-    attention layer (a hybrid stack's shared block once per group), one K6
-    per SSM layer."""
+    self-attention layer (a hybrid stack's shared block once per group, a
+    VLM's self layers but not its cross layers, an encoder-decoder's
+    encoder and decoder layers), one K6 per SSM layer."""
     if cfg.kind == "ssm":
         return 0, cfg.num_layers
     if cfg.kind == "hybrid":
         return cfg.num_layers // cfg.attn_every, cfg.num_layers
-    return cfg.num_layers, 0
+    if cfg.kind == "vlm":
+        return cfg.num_layers - cfg.num_layers // cfg.cross_attn_every, 0
+    return cfg.num_layers + cfg.num_encoder_layers, 0
 
 
 def recompute(cfg, params, results: dict, passes: int = 5) -> None:
@@ -1725,14 +1931,16 @@ def recompute(cfg, params, results: dict, passes: int = 5) -> None:
                   FLASH_KERNELS[:1] + SSD_KERNELS[:1])
 
 
-def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
+def train(cfg_full, results: dict, layers: int, steps: int = 3,
+          shape=(4, 512, 512)) -> None:
     """Step 4 of a GRPO iteration at full width: f32 params with AdamW, as
-    the actor holds them, 4 sequences x 1024 tokens (512 prompt + 512
-    response) in two microbatches, GRPO advantages from seeded rewards in
-    groups of 4.  Depth is cut to ``layers``: the f32 params, two moments,
-    the gradient and its accumulator take 20 bytes per parameter (yi-9b's
-    48 layers, 8.8 B parameters, would need 176 GB; granite-moe's 32,
-    3.3 B, 66 GB before activations)."""
+    the actor holds them, ``shape`` = 4 sequences x (512 prompt + 512
+    response) tokens in two microbatches, GRPO advantages from seeded
+    rewards in groups of 4; an encoder-decoder's batch also holds its
+    (4, 1500, d) f32 frames.  Depth is cut to ``layers``: the f32 params,
+    two moments, the gradient and its accumulator take 20 bytes per
+    parameter (yi-9b's 48 layers, 8.8 B parameters, would need 176 GB;
+    granite-moe's 32, 3.3 B, 66 GB before activations)."""
     import numpy as np
     import torch
 
@@ -1744,17 +1952,19 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
     from repro_torch.utils.treeutil import tree_leaves
 
     cfg = cfg_full.replace(num_layers=layers)
-    B, P, R = 4, 512, 512
-    params = init_model(torch.Generator(device="cuda").manual_seed(SEED + 4),
-                        cfg, torch.float32, "cuda")
+    B, P, R = shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    params = open_gates(init_model(g, cfg, torch.float32, "cuda"))
     opt = init_adamw(params)
     n_params = sum(t.numel() for t in tree_leaves(params))
     rng = np.random.default_rng(SEED + 4)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size,
                                            (B, P + R))).cuda()
     batch = grpo_batch(rng, tokens, P, group_size=4)
+    emb = embeddings(cfg, B, g, torch.float32, "cuda")
+    batch.update(emb)
     batch["old_logprobs"] = make_prefill_step(cfg)(params,
-                                                   {"tokens": tokens})
+                                                   {"tokens": tokens, **emb})
     hp = TrainHParams(optimizer=AdamWConfig(lr=1e-5), n_microbatches=2)
     step = make_train_step(cfg, hp)
     def probe():  # an attention weight, an expert's, an SSM layer's A_log
@@ -1805,7 +2015,9 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
     log(f"train: {cfg.name} full width cut to {layers} of "
         f"{cfg_full.num_layers} "
         f"layers ({n_params / 1e9:.3f} B params, f32 + AdamW), {B} x "
-        f"{P + R} tokens in {hp.n_microbatches} microbatches: median step "
+        f"{P + R} tokens"
+        + "".join(f" with {k} {tuple(v.shape)}" for k, v in emb.items())
+        + f" in {hp.n_microbatches} microbatches: median step "
         f"{statistics.median(times) * 1e3:.1f} ms = "
         f"{B * (P + R) / statistics.median(times):.0f} tok/s; peak memory "
         f"{peak:.2f} GB (max_memory_allocated); card: {card_line()}")
@@ -1820,27 +2032,261 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3) -> None:
                   FLASH_KERNELS + SSD_KERNELS)
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter holder, by the kernel's short
+    name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssm_update as ssu
+
+    return {"K1": pa.paged_attention_bhd, "K2": ks.fused_sample_bv,
+            "K3": fa.flash_attention_bhsd, "K3bwd": fa.flash_attention_bwd,
+            "K4": gmm.grouped_matmul, "K5": gmm.moe_decode_gmm,
+            "K6": ssd.ssd_scan_bhcsp, "K6bwd": ssd.ssd_scan_bwd,
+            "K7": ssu.ssm_state_update_bh}
+
+
+def zero_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def gate_launches(want: dict, tag: str) -> None:
+    """Every kernel's launches since :func:`zero_launches` equal
+    ``want[kernel]``, 0 for a kernel not named."""
+    got = {k: fn.launches for k, fn in launch_counters().items()}
+    assert got == {k: want.get(k, 0) for k in got}, f"{tag}: {got} != {want}"
+
+
+STATIC = (8, 64, 32)  # prompts, prompt tokens, new tokens
+
+
+def static_generate(cfg, params, prompts, want: dict, tag: str):
+    """``Engine.generate`` of ``prompts`` on the card, 32 new tokens at T 1,
+    top-k 50, top-p 0.9, no EOS, after a short warm-up call; the launch
+    counters set to 0 just before and gated to ``want`` just after.
+    Returns (the result, wall seconds)."""
+    import torch
+
+    from repro_torch.serve import Engine
+
+    kw = dict(temperature=1.0, top_k=50, top_p=0.9, eos_token=-1,
+              device="cuda")
+    Engine(cfg, max_new_tokens=2, **kw).generate(params, prompts[:, :4],
+                                                 seed=99)
+    eng = Engine(cfg, max_new_tokens=STATIC[2], **kw)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = eng.generate(params, prompts, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gate_launches(want, tag)
+    S = prompts.shape[1]
+    gen, lp = res.tokens[:, S:], res.logprobs[:, S:]
+    assert bool(((gen >= 0) & (gen < cfg.vocab_size)).all()), tag
+    assert bool((torch.isfinite(lp) & (lp <= 1e-3)).all()), tag
+    return res, wall
+
+
+def static_step(cfg, params, results: dict) -> None:
+    """The static engine on the full-depth bf16 serve weights:
+    ``Engine.generate`` of 8 prompts of 64 tokens (equal lengths, so no
+    left padding) with 32 new tokens: the prompts decoded a position at a
+    time (64 decode steps), then 32 rounds of one K2 launch for the batch
+    and a decode step.  Launches gated exactly: K2 = 32, K1 = K3 = 0, and
+    for an MoE stack K5 = layers x 96 decode steps, K4 = 2 x K5.  Then
+    ``make_prefill_step`` scores the rollouts (K3 once a layer) and the
+    engine-vs-recompute mismatch is gated at the paged engine's bars."""
+    import numpy as np
+
+    from repro_torch.train import make_prefill_step
+
+    B, P, N = STATIC
+    L, steps = cfg.num_layers, P + N
+    prompts = np.random.default_rng(SEED + 5).integers(3, cfg.vocab_size,
+                                                       (B, P))
+    want = {"K2": N}
+    moe = ""
+    if cfg.moe is not None:
+        want.update(K5=L * steps, K4=2 * L * steps)
+        moe = (f", moe_decode={L * steps} (= {L} layers x {steps} decode "
+               f"steps), grouped_matmul={2 * L * steps}")
+    res, wall = static_generate(cfg, params, prompts, want, "static")
+    zero_launches()
+    lp = make_prefill_step(cfg)(params, {"tokens": res.tokens.cuda()})
+    gate_launches({"K3": L}, "static recompute")
+    gap = (lp[:, P:].cpu() - res.logprobs[:, P:]).abs()
+    mean_gap, max_gap = gap.mean().item(), gap.max().item()
+    mean_tol, max_tol = MISMATCH_TOL[cfg.name]
+    assert mean_gap <= mean_tol and max_gap <= max_tol, (
+        f"static engine vs recompute: mean|diff| {mean_gap}, max {max_gap} "
+        f"past ({mean_tol}, {max_tol})")
+    log(f"static: {cfg.name} full depth ({L} layers, bf16 weights, f32 "
+        f"decode state) Engine.generate of {B} prompts x {P} tokens + {N} "
+        f"new (T 1.0, top-k 50, top-p 0.9) in {wall:.3f} s = "
+        f"{B * N / wall:.1f} generated tok/s; {steps} decode steps at "
+        f"{1e3 * wall / steps:.2f} ms host wall each (sampling included); "
+        f"launches fused_sample={N} (one a round){moe}, paged_attention=0, "
+        f"flash_attention=0; make_prefill_step of the rollouts "
+        f"(flash_attention={L}): engine vs recompute mean|diff|="
+        f"{mean_gap:.4g} (tol {mean_tol}) max|diff|={max_gap:.4g} (tol "
+        f"{max_tol}); card: {card_line()}")
+    results["fused_sample"]["launches"] += N
+    results["flash_fwd"]["launches"] += L
+    if cfg.moe is not None:
+        results["moe_decode"]["launches"] += L * steps
+        results["grouped_matmul"]["launches"] += 2 * L * steps
+
+
+def score(tag: str, cfg, params, batch: dict, results: dict,
+          passes: int = 5) -> None:
+    """``make_prefill_step`` over ``batch`` (tokens and the stub
+    frontend's embeddings) on the card: a warm-up, then ``passes`` timed
+    passes with the launches gated exactly (K3 once a self-attention
+    layer, nothing else); the median and a profiled pass reported."""
+    import torch
+
+    from repro_torch.train import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    n3 = kernel_layers(cfg)[0]
+    walls = []
+    for _ in range(passes):
+        zero_launches()
+        t0 = time.perf_counter()
+        lp = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        gate_launches({"K3": n3}, tag)
+    B, S = batch["tokens"].shape
+    assert lp.shape == (B, S) and bool(torch.isfinite(lp).all()), tag
+    wall = statistics.median(walls)
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()
+                       if k != "tokens")
+    log(f"{tag}: {cfg.name} make_prefill_step of {B} x {S} tokens with "
+        f"{inputs} (bf16) in {wall * 1e3:.1f} ms (median of {passes}: "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+        + f" ms) = {B * S / wall:.0f} tok/s; flash_attention launches "
+        f"{n3} a pass, nothing else (gated exactly); card: {card_line()}")
+    results["flash_fwd"]["launches"] += n3 * passes
+    log_breakdown(tag, f"{cfg.name} one scoring pass", wall,
+                  profiled(lambda: prefill(params, batch)), FLASH_KERNELS[:1])
+
+
+def encdec(results: dict) -> None:
+    """whisper-large-v3 at full size (32 encoder + 32 decoder layers, d
+    1280, 20 heads of 64, vocab 51866; 2.02 B params), random weights and
+    random frames for the stub frontend:
+      - ``make_prefill_step`` on 8 x 448 tokens with (8, 1500, 1280)
+        frames in bf16 (``score``): K3 = 64 a pass (32 bidirectional in
+        the encoder, 32 causal in the decoder);
+      - a static ``Engine.generate`` of 8 prompts of 16 tokens with 32 new
+        tokens: K2 = 32 and nothing else, no K3 (the JAX engine passes no
+        frames: the decoder reads zero cross caches, the encoder never
+        runs);
+      - the bf16 weights freed, three GRPO steps in f32 + AdamW (40.5 GB
+        of state) of 4 x 448 tokens with (4, 1500, 1280) f32 frames in two
+        microbatches (``train``): K3 and its backward 64 x 2 a step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.utils.treeutil import tree_leaves
+
+    cfg = get_config("whisper-large-v3")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    t0 = time.perf_counter()
+    params = init_model(g, cfg, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"encdec: init_model {cfg.name} bf16 {n / 1e9:.3f} B params, "
+        f"{2 * n / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 6)
+    B, S = WHISPER_RECOMPUTE
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                                     (B, S))).cuda(),
+             **embeddings(cfg, B, g, torch.bfloat16, "cuda")}
+    score("encdec", cfg, params, batch, results)
+    del batch
+    prompts = rng.integers(3, cfg.vocab_size, (8, 16))
+    _, wall = static_generate(cfg, params, prompts, {"K2": STATIC[2]},
+                              "encdec static")
+    log(f"encdec: static Engine.generate of 8 prompts x 16 tokens + "
+        f"{STATIC[2]} new (T 1.0, top-k 50, top-p 0.9) in {wall:.3f} s = "
+        f"{8 * STATIC[2] / wall:.1f} generated tok/s ({wall * 1e3 / 48:.2f} "
+        f"ms host wall a decode step); launches fused_sample={STATIC[2]}, "
+        f"flash_attention=0 (zero cross caches, no encoder pass)")
+    results["fused_sample"]["launches"] += STATIC[2]
+    del params
+    torch.cuda.empty_cache()
+    train(cfg, results, cfg.num_layers, shape=WHISPER_TRAIN)
+    torch.cuda.empty_cache()
+
+
+VLM_GROUPS = 1  # of llama-3.2-vision-90b's 20 (4 self + 1 cross layer each)
+
+
+def vlm(results: dict) -> None:
+    """llama-3.2-vision-90b at full width (d 8192, 64 heads / 8 KV of 128,
+    d_ff 28672, vocab 128256) cut to one group of 4 self-attention layers
+    and a cross layer (6.39 B params), random weights with the cross gate
+    at 0.5, random image tokens for the stub frontend:
+      - ``make_prefill_step`` on 8 x 512 tokens with (8, 1024, 8192)
+        image tokens in bf16 (``score``): K3 = 4 a pass;
+      - a static ``Engine.generate`` of 8 prompts of 64 tokens with 32 new
+        tokens: K2 = 32 and nothing else."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.utils.treeutil import tree_leaves
+
+    full = get_config("llama-3.2-vision-90b")
+    cfg = full.replace(num_layers=VLM_GROUPS * full.cross_attn_every)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    t0 = time.perf_counter()
+    params = open_gates(init_model(g, cfg, torch.bfloat16, "cuda"))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"vlm: init_model {cfg.name} cut to {cfg.num_layers} of "
+        f"{full.num_layers} layers, bf16 {n / 1e9:.3f} B params, "
+        f"{2 * n / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 7)
+    B, S = VLM_RECOMPUTE
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                                     (B, S))).cuda(),
+             **embeddings(cfg, B, g, torch.bfloat16, "cuda")}
+    score("vlm", cfg, params, batch, results)
+    del batch
+    B, P, N = STATIC
+    prompts = rng.integers(3, cfg.vocab_size, (B, P))
+    _, wall = static_generate(cfg, params, prompts, {"K2": N}, "vlm static")
+    log(f"vlm: static Engine.generate of {B} prompts x {P} tokens + {N} new "
+        f"(T 1.0, top-k 50, top-p 0.9) in {wall:.3f} s = "
+        f"{B * N / wall:.1f} generated tok/s ({wall * 1e3 / (P + N):.2f} ms "
+        f"host wall a decode step); launches fused_sample={N}, "
+        f"flash_attention=0")
+    results["fused_sample"]["launches"] += N
+    del params
+    torch.cuda.empty_cache()
+
+
 GRPO_LAYERS = 8  # of yi-9b's 48: the train phase's cut (f32 + AdamW)
 
 
 def grpo_launches():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import sampling as ks
-
-    return (pa.paged_attention_bhd.launches, ks.fused_sample_bv.launches,
-            fa.flash_attention_bhsd.launches, fa.flash_attention_bwd.launches)
-
-
-def zero_grpo_launches() -> None:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import sampling as ks
-
-    pa.paged_attention_bhd.launches = 0
-    ks.fused_sample_bv.launches = 0
-    fa.flash_attention_bhsd.launches = 0
-    fa.flash_attention_bwd.launches = 0
+    """(K1, K2, K3, K3 backward) launches since :func:`zero_launches`: the
+    kernels of the runners' paths."""
+    counters = launch_counters()
+    return tuple(counters[k].launches for k in ("K1", "K2", "K3", "K3bwd"))
 
 
 def check_sync_copies(runner) -> None:
@@ -1978,7 +2424,7 @@ def grpo(results: dict, mode: str) -> None:
         log(f"{tag}: plan: {line}")
     totals = [0, 0, 0, 0]
     for it in range(rl.iterations):
-        zero_grpo_launches()
+        zero_launches()
         d0 = eng.decode_batches
         s0 = runner.sync_stats["seconds"]
         st = runner.run_iteration(it)
@@ -2161,7 +2607,7 @@ def rlhf(results: dict) -> None:
     runner.critic.train_value = critic_step
     totals = [0, 0, 0, 0]
     for it in range(ppo.iterations):
-        zero_grpo_launches()
+        zero_launches()
         d0, v0 = eng.decode_batches, len(value_steps)
         st = runner.run_iteration(it)
         torch.cuda.synchronize()
@@ -2287,7 +2733,7 @@ def embodied_run(mode: str):
                                        "truncated")}), out)[1]
     totals = [0, 0, 0, 0]
     for it in range(rl.iterations):
-        zero_grpo_launches()
+        zero_launches()
         before = dict(calls)
         st = runner.run_iteration(it)
         torch.cuda.synchronize()
@@ -2412,9 +2858,13 @@ def main() -> int:
     check_fused_sample(results, 51200, 50280, "mamba2-370m")
     check_fused_sample(results, 32768, 32000, "zamba2-2.7b")
     check_fused_sample(results, 100352, 100352, "stablelm-12b")
+    check_fused_sample(results, 53248, 51866, "whisper-large-v3")
+    check_fused_sample(results, 129024, 128256, "llama-3.2-vision-90b")
     check_flash_attention(results)
     check_flash_zamba2()
     check_flash_stablelm(results)
+    check_flash_whisper(results)
+    check_flash_phases(results)
     check_grouped_matmul(results)
     check_moe_decode(results)
     check_ssd_scan(results)
@@ -2425,10 +2875,15 @@ def main() -> int:
                         if arch == "granite-moe-3b-a800m"
                         else ((0.0, 0, 1.0), (1.0, 8, 0.9)))
         check_ref_train(arch)
+    for arch, window in STATIC_REF:
+        check_static_reference(arch, window)
+    for arch in ("llama-3.2-vision-90b", "whisper-large-v3"):
+        check_ref_train(arch)
 
-    # each model's main paths at full width: serve, greedy repeat and
-    # recompute from random bf16 weights, then the f32 train step (depth
-    # cut where the f32 params and AdamW moments would not fit)
+    # each model's main paths at full width: serve, greedy repeat, the
+    # static engine (the dense and MoE models) and recompute from random
+    # bf16 weights, then the f32 train step (depth cut where the f32
+    # params and AdamW moments would not fit)
     for arch, train_layers in (("yi-9b", 8), ("granite-moe-3b-a800m", 16),
                                ("mamba2-370m", 48), ("zamba2-2.7b", 24)):
         cfg = get_config(arch)
@@ -2445,6 +2900,8 @@ def main() -> int:
                    for n in rng.integers(64, 513, size=16)]
         serve(cfg, params, prompts, results)
         greedy_repeat(cfg, params, prompts)
+        if cfg.kind in ("dense", "moe"):
+            static_step(cfg, params, results)
         recompute(cfg, params, results)
         del params  # free the serve weights before training
         torch.cuda.empty_cache()
@@ -2452,6 +2909,9 @@ def main() -> int:
             moe_f32_paths(cfg)
         train(cfg, results, train_layers)
         torch.cuda.empty_cache()
+    # the kinds only the static engine serves, at full width
+    encdec(results)
+    vlm(results)
 
     # the runtime end to end: profile -> plan -> execute on the card
     grpo(results, "collocated")

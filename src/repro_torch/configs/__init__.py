@@ -1,8 +1,8 @@
-"""Architecture configs served by the port: the dense decoders, the MoE
-family and the SSM/hybrid family.
+"""Architecture configs of the port: the dense decoders, the MoE family,
+the SSM/hybrid family, the VLM and the encoder-decoder.
 
-Each module is a copy of its namesake in the JAX package's ``configs``;
-the VLM and enc-dec configs arrive with their layouts.
+Each module is a copy of its namesake in the JAX package's ``configs``,
+so :func:`list_archs` names the same zoo.
 """
 from __future__ import annotations
 
@@ -17,6 +17,9 @@ _MODULES = [
     "llama4_scout_17b_a16e",
     "mamba2_370m",
     "zamba2_2p7b",
+    "mistral_large_123b",
+    "llama_3_2_vision_90b",
+    "whisper_large_v3",
 ]
 
 _loaded = False

@@ -1,0 +1,17 @@
+"""mistral-large-123b [hf:mistralai/Mistral-Large-Instruct-2407]."""
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("mistral-large-123b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-large-123b",
+        kind="dense",
+        num_layers=88,
+        d_model=12288,
+        num_heads=96,
+        num_kv_heads=8,
+        d_ff=28672,
+        vocab_size=32768,
+        source="hf:mistralai/Mistral-Large-Instruct-2407",
+    )

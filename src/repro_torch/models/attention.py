@@ -1,5 +1,7 @@
-"""Attention, dense parts: GQA/MHA projections, scaled dot product, the
-full-sequence attention block and decode over a KV ring buffer.
+"""Attention: GQA/MHA projections, scaled dot product, the full-sequence
+attention block (causal, windowed or bidirectional), cross-attention
+(decoder to encoder, text to image tokens) and decode over a KV ring
+buffer.
 
 Counterpart of the JAX package's ``models/attention.py``.  Its
 ``chunked_sdpa`` (query-block chunking for S >= 2048) has no counterpart:
@@ -136,6 +138,43 @@ def attention(
         k = apply_rope(k, positions, cfg.rope_theta)
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    kv_src: torch.Tensor) -> torch.Tensor:
+    """x attends to kv_src (decoder to encoder, text to image tokens):
+    no rope, no mask, plain products (the JAX package computes it in XLA,
+    outside any Pallas kernel)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    out = sdpa(q, k, v, None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attention_cached(p: Params, x: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor) -> torch.Tensor:
+    """One query token a row, x (B, 1, d), against precomputed cross K/V
+    (B, S_src, KV, hd)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    out = sdpa(q, ck, cv, None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def precompute_cross_kv(p: Params, kv_src: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross K/V of ``kv_src`` in the promoted type of the source and the
+    weights (f32 embeddings against bf16 weights give f32, as in JAX)."""
+    dt = torch.promote_types(kv_src.dtype, p["wk"].dtype)
+    k = torch.einsum("bsd,dhk->bshk", kv_src.to(dt), p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", kv_src.to(dt), p["wv"].to(dt))
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,8 @@ device and hands numpy back.
 Counterpart of the JAX package's ``rl/workers.py``: ``RolloutWorker``
 (with the closed-loop ``act`` path of the embodied cycle),
 ``InferenceWorker``, ``ActorWorker``, ``RewardWorker`` and
-``SimulatorWorker``.  The rollout generates on the paged engine; the
-static ``Engine`` has ``act`` only, and its ``generate`` raises
-(ROADMAP.md queue 1, item 4).  The act path draws its noise from the
+``SimulatorWorker``.  The rollout generates on the paged engine, or on
+the static ``Engine`` for an arch no paged layout covers.  The act path draws its noise from the
 port's counter-based hash of (seed ^ 0x5EED, rollout round, cycle step,
 env id) (:func:`~repro_torch.serve.sampling.act_noise`), where the JAX
 worker folds a threefry key by the same tuple.
@@ -43,12 +42,6 @@ from repro_torch.train.trainer import (
     make_train_step,
 )
 
-STATIC_ENGINE_UNPORTED = (
-    "the static Engine's generate is not ported yet (ROADMAP.md queue 1, "
-    "item 4: the static Engine); the paged engine serves dense and MoE "
-    "stacks without a sliding window, and SSM and hybrid stacks")
-
-
 def rollout_seeds(seed: int) -> Iterator[int]:
     """Base seeds of a rollout worker's successive ``generate`` calls: a
     stream seeded once, one draw in [0, 2^31 - 1) a call.  Request ``i``
@@ -67,12 +60,12 @@ class RolloutWorker(Worker):
     requests join/leave the decode batch per step, the cache lives in
     the arch's layout (paged KV blocks or constant-size recurrent state),
     and trainer weight updates apply in flight with per-request version
-    tags.  ``engine="static"`` builds the act-only
-    :class:`~repro_torch.serve.engine.Engine` (the embodied policy), the
-    one engine :meth:`act` runs on; it takes no generation settings.  An
-    arch no layout covers (windowed dense attention, encoder-decoder,
-    VLM) raises under ``"auto"``: the JAX worker falls back to its static
-    engine there, whose ``generate`` the port lacks.
+    tags.  ``engine="static"`` keeps the fixed-shape
+    :class:`~repro_torch.serve.engine.Engine`; an arch no layout covers
+    (windowed dense attention, encoder-decoder, VLM) falls back to it
+    under ``"auto"`` with a warning.  (The JAX worker also records a
+    trace instant and an ``rollout/engine_fallback`` counter there; the
+    port's obs hooks are not wired into the workers yet.)
 
     Sampling seeds come from :attr:`seeds` (:func:`rollout_seeds` of
     ``seed + process_index``), one base seed a call; a caller may replace
@@ -104,12 +97,17 @@ class RolloutWorker(Worker):
         self.act_latency = act_latency
         self.act_latency_per_env = act_latency_per_env
         if engine == "auto":
-            if not serve_layouts.covers(cfg):
-                raise NotImplementedError(
-                    f"RolloutWorker {name!r}: arch {cfg.name!r} (kind="
-                    f"{cfg.kind}, sliding_window={cfg.sliding_window}) "
-                    "needs the static engine, and " + STATIC_ENGINE_UNPORTED)
-            engine = "paged"
+            if serve_layouts.covers(cfg):
+                engine = "paged"
+            else:
+                engine = "static"
+                # loud fallback: workloads missing the fast path must
+                # show up in logs, not vanish
+                warnings.warn(
+                    f"RolloutWorker {name!r}: no paged cache layout "
+                    f"covers arch {cfg.name!r} (kind={cfg.kind}, "
+                    f"sliding_window={cfg.sliding_window}); falling "
+                    f"back to the static engine", stacklevel=2)
         assert engine in ("paged", "static"), engine
         self.engine_kind = engine
         if engine == "paged":
@@ -123,9 +121,9 @@ class RolloutWorker(Worker):
                 top_k=top_k, top_p=top_p, prefix_sharing=prefix_sharing,
                 prefill_chunk=prefill_chunk, device=self.device)
         else:
-            # act samples at temperature 1 over the action window, as
-            # JAX's does; the generation settings serve generate alone
-            self.engine = Engine(cfg, device=self.device)
+            self.engine = Engine(cfg, max_new_tokens=max_new_tokens,
+                                 temperature=temperature, top_k=top_k,
+                                 top_p=top_p, device=self.device)
         self.seeds: Iterator[int] = rollout_seeds(seed + process_index)
         # the act path's noise: a fixed base seed, hashed with the round,
         # the cycle step and the env id (never consumed sequentially), so
@@ -189,11 +187,13 @@ class RolloutWorker(Worker):
     def _act_engine(self) -> Engine:
         if isinstance(self.engine, Engine):
             return self.engine
-        # JAX builds a hidden static engine for a paged worker's act; the
-        # port's one acting worker (the embodied policy) is built static
-        raise NotImplementedError(
-            f"RolloutWorker {self.name!r}: act runs on the act-only static "
-            "Engine; build the worker with engine=\"static\"")
+        # the paged engine has no single-step act path; acting is a
+        # prefill-only op, so a static engine (explicit params, no
+        # duplicated state) covers it
+        if not hasattr(self, "_static_act_engine"):
+            self._static_act_engine = Engine(self.cfg, max_new_tokens=1,
+                                             device=self.device)
+        return self._static_act_engine
 
     def act(self, chunk: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Per-step action sampling for the cycle executor.  Consumes

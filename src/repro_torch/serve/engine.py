@@ -1,6 +1,12 @@
-"""Rollout/serving engines: paged continuous batching, and the static
-engine's closed-loop action path.
+"""Rollout/serving engines: the static batch engine and paged continuous
+batching.
 
+:class:`Engine` is the fixed-shape engine: the prompt decoded into a
+dense KV ring (or state) a position at a time, then ``max_new_tokens``
+rounds of sample-and-decode with a per-sequence ``done`` mask; every arch
+kind runs on it, also those no paged layout covers (VLM,
+encoder-decoder, windowed attention).  It also carries the embodied
+cycle's closed-loop action path (:meth:`Engine.act`).
 :class:`PagedEngine` is continuous batching over a device cache whose
 layout follows the architecture (:mod:`repro_torch.serve.layouts`): the
 decode batch is re-formed every step (finished requests immediately free
@@ -11,15 +17,11 @@ state per slot, and trainer weight updates apply *in flight* at step
 boundaries with per-request version tags preserved for the staleness
 correction.
 
-It returns per-token *behaviour logprobs* so the trainer can form
+Both return per-token *behaviour logprobs* so the trainer can form
 importance ratios without a separate inference pass.
 
-Counterpart of ``PagedEngine`` in the JAX package's ``serve/engine.py``,
-without its tracing and metrics hooks.  Of that module's static
-:class:`Engine` the port has the constructor and :meth:`Engine.act` (one
-forward, a masked Gumbel-max draw a row: the embodied workflow's policy
-step); its ``generate`` needs ``prefill`` and the dense decode path and
-raises (ROADMAP.md queue 1, item 4).
+Counterpart of the JAX package's ``serve/engine.py``, without its
+tracing and metrics hooks.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.serve.paging import (
     PrefixCache,
     pad_block_table,
 )
+from repro_torch.serve.sampling import request_noise, sample_tokens_fused
 from repro_torch.serve.scheduler import RUNNING, ContinuousScheduler, Request
 
 
@@ -53,28 +56,88 @@ class GenerationResult(NamedTuple):
     weight_versions: Optional[np.ndarray] = None
 
 
-STATIC_GENERATE_UNPORTED = (
-    "Engine.generate is not ported yet (ROADMAP.md queue 1, item 4: the "
-    "static Engine, with prefill and the dense decode path); the port's "
-    "Engine has act only, and PagedEngine generates")
-
-
 class Engine:
-    """The static engine of the JAX package, as far as the closed-loop
-    action path needs it: the constructor and :meth:`act`.  The JAX
-    constructor's generation settings (max_new_tokens, temperature, top-k,
-    top-p, eos, pad) serve only ``generate``, so the port takes none of
-    them until that is ported (ROADMAP.md queue 1, item 4).
+    """The static batch engine for one model config.
+
+    :meth:`generate` follows the JAX engine's ``_generate_impl`` step for
+    step: a decode state of ``S + max_new_tokens`` positions, the
+    left-padded prompt decoded into it (``models.model.prefill``: pads
+    are decoded like any token, ``prompt_lens`` is not read), then
+    ``max_new_tokens`` rounds of: sample every row from the last logits
+    (``sample_tokens_fused``, the fused sampling kernel on the card, once
+    a round for the batch), PAD and logprob 0 where a row is done, write
+    at position ``S + i``, decode that token.  Like the JAX engine it
+    passes no ``extra``: a VLM or encoder-decoder decodes against zero
+    cross caches.  The decode state is f32, as the JAX engine's default.
+
+    The Gumbel noise of a round comes from :attr:`noise_fn` ``(seeds,
+    positions, V)``, by default :func:`~repro_torch.serve.sampling.
+    request_noise` with row ``b`` seeded ``(seed + b) & 0x7FFFFFFF`` at the
+    absolute position of the drawn token: the paged layouts' convention,
+    so a test may hand it another framework's draws.  (The JAX engine
+    splits one threefry key a round instead.)
 
     ``device`` defaults to the card; without CUDA the caller must pass
     ``device="cpu"``, which runs the kernels' plain versions."""
 
-    def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None):
+    def __init__(self, cfg: ModelConfig, *, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, eos_token: int = 2,
+                 pad_token: int = 0, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.eos = eos_token
+        self.pad = pad_token
+        self.noise_fn = request_noise
 
-    def generate(self, params, prompt_tokens, prompt_lens=None, seed=None):
-        raise NotImplementedError(STATIC_GENERATE_UNPORTED)
+    @torch.no_grad()
+    def generate(self, params, prompt_tokens, prompt_lens=None,
+                 seed: Optional[int] = None) -> GenerationResult:
+        """prompt_tokens: (B, S) int left-padded prompts; returns
+        (B, S + max_new_tokens) tokens (PAD after EOS), behaviour
+        logprobs (0 on the prompt), ``lengths`` (S plus the generated
+        tokens that are not PAD) and ``done``, as CPU tensors.
+        ``prompt_lens`` is accepted and ignored, as in the JAX engine."""
+        cfg, dev = self.cfg, self.device
+        prompts = torch.as_tensor(np.asarray(prompt_tokens),
+                                  dtype=torch.long).to(dev)
+        B, S = prompts.shape
+        N = self.max_new_tokens
+        seeds = (int(seed or 0) + torch.arange(B, device=dev)) & 0x7FFFFFFF
+        state = M.init_decode_state(cfg, B, S + N, device=dev)
+        logits, state = M.prefill(params, cfg, prompts, state)
+        last = logits[:, 0]
+        toks = torch.cat([prompts, torch.full((B, N), self.pad,
+                                              dtype=torch.long, device=dev)],
+                         dim=1)
+        lps = torch.zeros((B, S + N), dtype=torch.float32, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        for i in range(N):
+            pos = S + i
+            gumbel = None
+            if self.temperature > 0.0:
+                gumbel = torch.as_tensor(
+                    self.noise_fn(seeds, torch.full_like(seeds, pos),
+                                  last.shape[-1]),
+                    dtype=torch.float32, device=dev)
+            tok, lp = sample_tokens_fused(
+                gumbel, last, temperature=self.temperature, top_k=self.top_k,
+                top_p=self.top_p, vocab_size=cfg.vocab_size)
+            tok = torch.where(done, self.pad, tok.long())
+            toks[:, pos] = tok
+            lps[:, pos] = torch.where(done, 0.0, lp)
+            done = done | (tok == self.eos)
+            logits, state = M.decode_step(params, cfg, tok[:, None], state,
+                                          pos)
+            last = logits[:, 0]
+        lengths = S + (toks[:, S:] != self.pad).sum(dim=1)
+        return GenerationResult(
+            tokens=toks.to(torch.int32).cpu(), logprobs=lps.cpu(),
+            lengths=lengths.to(torch.int32).cpu(), done=done.cpu())
 
     @torch.no_grad()
     def act(self, params, prompt_tokens, noise, *, action_lo: int,

@@ -9,6 +9,7 @@ from repro_torch.train.trainer import (  # noqa: F401
     init_train_state,
     lm_loss,
     make_prefill_step,
+    make_serve_step,
     make_train_step,
     policy_loss,
 )

@@ -3,13 +3,13 @@
 Counterpart of the JAX package's ``train/trainer.py``:
 ``make_train_step`` builds the RL policy-gradient step (clipped surrogate
 with a token-level loss) and ``make_prefill_step`` the inference worker's
-logprob recompute.  ``make_serve_step`` comes with ``decode_step`` in the
-static-engine slice.  Of the JAX ``TrainHParams``, ``act_spec`` and
-``grad_specs`` (sharding) have no counterpart on one card, and
-``compute_dtype`` and ``value_coef`` are read by nothing in either
-package.  The dense, MoE, SSM and hybrid kinds run here (``forward``
-carries what is kind-specific); the VLM and encoder-decoder kinds are not
-ported, so their inputs of the batch are not taken.
+logprob recompute, ``make_serve_step`` one decode step against a standing
+cache.  Of the JAX ``TrainHParams``, ``act_spec`` and ``grad_specs``
+(sharding) have no counterpart on one card, and ``compute_dtype`` and
+``value_coef`` are read by nothing in either package.  Every arch kind
+runs here (``forward`` carries what is kind-specific); a batch's
+``image_embeds`` (VLM) or ``frame_embeds`` (encoder-decoder) go to
+``forward`` as its ``extra``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,14 @@ from repro_torch.train.optimizer import (
 from repro_torch.utils.treeutil import tree_leaves, tree_map, tree_unflatten
 
 Batch = Dict[str, torch.Tensor]
+
+# the batch entries that ``forward`` takes as its ``extra``
+EXTRA_KEYS = ("image_embeds", "frame_embeds")
+
+
+def _extra(batch: Batch):
+    extra = {k: batch[k] for k in EXTRA_KEYS if k in batch}
+    return extra or None
 
 
 class TrainHParams(NamedTuple):
@@ -59,8 +67,10 @@ def policy_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
       advantages    (B, S) f32
       loss_mask     (B, S) f32 — 1 on response tokens
       ref_logprobs  (B, S) f32 — optional, for the k3 KL term
+      (+ image_embeds / frame_embeds for vlm / encdec archs)
     """
-    logits, aux = M.forward(params, cfg, batch["tokens"], remat=hp.remat)
+    logits, aux = M.forward(params, cfg, batch["tokens"], _extra(batch),
+                            remat=hp.remat)
     # logits[t] predicts tokens[t+1]
     lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
                         cfg.vocab_size)  # (B, S-1)
@@ -177,13 +187,26 @@ def make_prefill_step(cfg: ModelConfig, hp: Optional[TrainHParams] = None):
 
     @torch.no_grad()
     def prefill_step(params, batch: Batch) -> torch.Tensor:
-        logits, _ = M.forward(params, cfg, batch["tokens"], remat=hp.remat)
+        logits, _ = M.forward(params, cfg, batch["tokens"], _extra(batch),
+                              remat=hp.remat)
         lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
                             cfg.vocab_size)
         # align: entry t scores tokens[t]; entry 0 zero
         return F.pad(lp, (1, 0))
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """Decode worker: ONE new token against the standing cache.  The JAX
+    ``unroll`` (of the layer scan) has no counterpart: the port's layers
+    are a Python loop."""
+
+    @torch.no_grad()
+    def serve_step(params, token: torch.Tensor, state: M.DecodeState, pos):
+        return M.decode_step(params, cfg, token, state, pos)
+
+    return serve_step
 
 
 def init_train_state(gen, cfg: ModelConfig, dtype=torch.float32,

@@ -20,7 +20,7 @@ from repro_torch.kernels import sampling as ks
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import ssm_update as ssu
 from repro_torch.models import forward, init_model
-from repro_torch.serve import PagedEngine
+from repro_torch.serve import Engine, PagedEngine, covers
 from repro_torch.serve.sampling import request_noise
 from repro_torch.train import TrainHParams, policy_loss
 from repro_torch.utils.treeutil import tree_leaves, tree_map, tree_unflatten
@@ -345,6 +345,10 @@ FLASH_CASES = [
     (2, 24, 8, 1024, 64, True, 0),     # granite train microbatch
     (2, 32, 32, 300, 80, True, 64),    # zamba2 heads (MHA, D 80), window
     (2, 32, 32, 1024, 80, True, 4096),  # zamba2 train microbatch
+    # whisper-large-v3's encoder (MHA, D 64, bidirectional): the train
+    # microbatch, S 1500 a 28-row tail on 64-row tiles
+    (2, 20, 20, 1500, 64, False, 0),
+    (2, 20, 20, 448, 64, True, 0),     # whisper decoder train microbatch
 ]
 # the kernels also at the bf16 kernel's edges
 FLASH_EDGE_CASES = [
@@ -361,6 +365,8 @@ FLASH_EDGE_CASES = [
 FLASH_FWD_CASES = FLASH_CASES + FLASH_EDGE_CASES + [
     (1, 4, 2, 200, 256, True, 50),
     (2, 4, 1, 130, 250, False, 0),   # D % 16 != 0 at the top
+    (8, 20, 20, 448, 64, True, 0),   # whisper decoder recompute
+    (8, 64, 8, 512, 128, True, 0),   # llama-3.2-vision self layers, recompute
 ]
 # and the backward at window 1, where every row sees one key
 FLASH_BWD_CASES = FLASH_CASES + FLASH_EDGE_CASES + [
@@ -523,6 +529,100 @@ def test_forward_and_policy_grads_card_vs_cpu(dev, remat):
     assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) + 1e-6
     for a, b in zip(gg, gc):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-7
+
+
+def _open_gates(params):
+    """A VLM's cross gates at 0.5 (``init_model`` zeros them, and tanh(0)
+    would skip the cross layers)."""
+    if "cross_layers" in params:
+        params["cross_layers"]["gate"].fill_(0.5)
+    return params
+
+
+def _embeddings(cfg, B, rng):
+    """The stub frontend's image tokens or audio frames, as a batch's
+    entries."""
+    if cfg.kind == "vlm":
+        key, n = "image_embeds", cfg.num_image_tokens
+    elif cfg.kind == "encdec":
+        key, n = "frame_embeds", cfg.encoder_seq_len
+    else:
+        return {}
+    return {key: torch.from_numpy(
+        rng.standard_normal((B, n, cfg.d_model)).astype(np.float32))}
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-large-v3"])
+def test_cross_kinds_forward_and_policy_grads_card_vs_cpu(dev, arch):
+    """Reduced VLM and encoder-decoder in f32 from the same weights, with
+    their embeddings: logits and every gradient of the policy loss on the
+    card (K3 causal in the decoder, bidirectional in the encoder, and its
+    backward) against the CPU."""
+    cfg = get_config(arch).reduced()
+    cpu = _open_gates(init_model(torch.Generator().manual_seed(8), cfg,
+                                 torch.float32, "cpu"))
+    rng = np.random.default_rng(8)
+    B, S = 2, 70
+    mask = np.zeros((B, S), np.float32)
+    mask[:, 20:] = 1.0
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                                     (B, S))),
+             "old_logprobs": torch.full((B, S), -6.0),
+             "advantages": torch.from_numpy(
+                 rng.standard_normal((B, S)).astype(np.float32) * mask),
+             "loss_mask": torch.from_numpy(mask),
+             **_embeddings(cfg, B, rng)}
+    hp = TrainHParams(entropy_coef=0.01)
+    out = []
+    for device in ("cpu", dev):
+        params = tree_map(lambda t: t.to(device).requires_grad_(), cpu)
+        mb = {k: v.to(device) for k, v in batch.items()}
+        fa.flash_attention_bhsd.launches = 0
+        loss, _ = policy_loss(cfg, hp, params, mb)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out.append((float(loss.detach()), [g.cpu() for g in grads]))
+    # one K3 a self-attention layer, the encoder's among them
+    cross = cfg.num_layers // cfg.cross_attn_every if cfg.kind == "vlm" else 0
+    assert fa.flash_attention_bhsd.launches == (
+        cfg.num_layers - cross + cfg.num_encoder_layers)
+    (loss_c, gc), (loss_g, gg) = out
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) + 1e-6
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-7
+
+
+@pytest.mark.parametrize("arch,window", [
+    ("yi-9b", 0), ("yi-9b", 8), ("granite-moe-3b-a800m", 0),
+    ("mamba2-370m", 0), ("zamba2-2.7b", 0), ("llama-3.2-vision-90b", 0),
+    ("whisper-large-v3", 0)])
+def test_static_engine_card_vs_cpu(dev, arch, window):
+    """The static engine on reduced models in f32 from the same weights,
+    on the card and on the CPU: the same tokens, logprobs within 1e-3,
+    the sampling kernel launched once a round; at temperature 0 the
+    card's static tokens are its paged engine's where a layout covers
+    the arch."""
+    cfg = get_config(arch).reduced().replace(sliding_window=window)
+    cpu = _open_gates(init_model(torch.Generator().manual_seed(9), cfg,
+                                 torch.float32, "cpu"))
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    prompts = np.random.default_rng(9).integers(3, cfg.vocab_size, (4, 19))
+    prompts[1, :5] = 0  # a left-padded row
+    for temp, k, p in ((0.0, 0, 1.0), (1.0, 8, 0.9)):
+        kw = dict(max_new_tokens=10, temperature=temp, top_k=k, top_p=p,
+                  eos_token=-1)
+        ks.fused_sample_bv.launches = 0
+        got = Engine(cfg, device=dev, **kw).generate(gpu, prompts, seed=3)
+        assert ks.fused_sample_bv.launches == 10
+        want = Engine(cfg, device="cpu", **kw).generate(cpu, prompts, seed=3)
+        assert torch.equal(got.tokens, want.tokens), (temp, got.tokens,
+                                                      want.tokens)
+        assert (got.logprobs - want.logprobs).abs().max() <= 1e-3
+        if temp == 0.0 and covers(cfg):
+            paged = PagedEngine(cfg, max_batch=4, page_size=4,
+                                max_new_tokens=10, temperature=0.0,
+                                eos_token=-1, device=dev).generate(
+                gpu, prompts, seed=3)
+            assert torch.equal(paged.tokens, got.tokens)
 
 
 def test_moe_forward_and_policy_grads_card_vs_cpu(dev):

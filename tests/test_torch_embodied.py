@@ -244,17 +244,34 @@ def test_port_act_noise_is_the_same_under_any_chunking_of_the_env_batch():
 
 
 def test_act_needs_the_static_engine_and_engine_takes_no_sampling_settings():
+    """A paged worker acts through a hidden static engine of one new token
+    (as JAX's does), drawing what a static worker draws; ``Engine`` keeps
+    JAX's generation settings, which act does not read."""
     _, tcfg, jp = _policy()
-    paged = RolloutWorker("policy_gen/0", cfg=tcfg, engine="paged",
+    chunk = _obs_chunk(4)
+    out = {}
+    for kind in ("paged", "static"):
+        w = RolloutWorker("policy_gen/0", cfg=tcfg, engine=kind,
                           action_range=(LO, HI), device="cpu")
-    paged.update_weights(params_from_numpy(jp, device="cpu"))
-    with pytest.raises(NotImplementedError, match='engine="static"'):
-        paged.act(_obs_chunk(4))
-    paged.shutdown()
-    # generation settings would have no effect on act: refused, not kept
-    for kw in ({"temperature": 0.5}, {"max_new_tokens": 1}, {"top_k": 4}):
-        with pytest.raises(TypeError):
-            Engine(tcfg, device="cpu", **kw)
+        w.update_weights(params_from_numpy(jp, device="cpu"))
+        out[kind] = w.act(dict(chunk))
+        w.shutdown()
+    for k in ("action_tokens", "action_logprobs", "actions"):
+        np.testing.assert_array_equal(out["paged"][k], out["static"][k],
+                                      err_msg=k)
+    kw = dict(max_new_tokens=3, temperature=0.5, top_k=4, top_p=0.8,
+              eos_token=7, pad_token=1)
+    eng = Engine(tcfg, device="cpu", **kw)
+    assert (eng.max_new_tokens, eng.temperature, eng.top_k, eng.top_p,
+            eng.eos, eng.pad) == tuple(kw.values())
+    params = params_from_numpy(jp, device="cpu")
+    prompts = chunk["prompt_tokens"]
+    noise = torch.zeros((prompts.shape[0], tcfg.padded_vocab))
+    a = eng.act(params, prompts, noise, action_lo=LO, action_hi=HI)
+    b = Engine(tcfg, device="cpu").act(params, prompts, noise, action_lo=LO,
+                                       action_hi=HI)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, atol=0, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import attention as jattn
 from repro.models import init_model as jax_init_model
 from repro.models import layers as jlayers
@@ -41,8 +42,7 @@ def rng():
 
 
 def test_config_registry_matches_jax():
-    ported = sorted(DENSE + ["granite-moe-3b-a800m", "llama4-scout-17b-a16e",
-                             "mamba2-370m", "zamba2-2.7b"])
+    ported = jax_list_archs()  # the whole zoo
     assert tconfigs.list_archs() == ported
     for name in ported:  # asdict: the MoE block is a dataclass of its own
         assert dataclasses.asdict(tconfigs.get_config(name)) == \

@@ -171,14 +171,29 @@ def test_causal_mask_matches_jax(Sq, Sk, window):
 
 
 def test_forward_ports_the_dense_kind_only():
-    """``forward`` ports the dense, MoE, SSM and hybrid kinds; the kinds
-    still to come (VLM, encoder-decoder) raise."""
-    _, tcfg = tiny_cfg()
-    params = _bridge(_jinit(jax.random.PRNGKey(0), tiny_cfg()[0]))
-    for kind in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError):
-            forward(params, tcfg.replace(kind=kind),
-                    torch.zeros((1, 4)).long())
+    """``forward`` ports every kind, the VLM and encoder-decoder ones
+    among them: at the tiny widths of this file (64 wide, heads of 16)
+    their logits are JAX's, with and without remat, from the embeddings
+    in ``extra``."""
+    for arch, key, n in (("llama-3.2-vision-90b", "image_embeds", 16),
+                         ("whisper-large-v3", "frame_embeds", 32)):
+        jcfg, tcfg = tiny_cfg(arch)
+        jp = _jinit(jax.random.PRNGKey(0), jcfg)
+        if "cross_layers" in jp:  # tanh(0) would skip the cross layers
+            jp["cross_layers"]["gate"] = jnp.full_like(
+                jp["cross_layers"]["gate"], 0.5)
+        rng = np.random.default_rng(4)
+        tokens = rng.integers(0, 64, size=(2, 10)).astype(np.int32)
+        emb = rng.standard_normal((2, n, 64)).astype(np.float32)
+        want, _ = jax.jit(lambda p, t, e: jmodels.forward(
+            p, jcfg, t, {key: e}))(jp, jnp.asarray(tokens), jnp.asarray(emb))
+        for remat in (False, True):
+            got, aux = forward(_bridge(jp), tcfg,
+                               torch.from_numpy(tokens).long(),
+                               {key: torch.from_numpy(emb)}, remat=remat)
+            assert float(aux) == 0.0
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=LOGIT_TOL, rtol=LOGIT_TOL)
 
 
 # ---------------------------------------------------------------------------
