@@ -8,10 +8,10 @@ Run from the repository root with no arguments:
 Phases, one line of output each (more for the kernels):
   1. header     the card's name and power limit, the kernel build time,
                 every kernel's registers and spills, that the bf16
-                kernels of K3's forward and K4, both K6 forwards and
-                K6's backward run their products on the tensor cores
-                (HGMMA, HMMA in every instance's SASS), and that they and
-                K3's backward spill nothing;
+                kernels of K3's forward and K4, both K6 forwards, K6's
+                backward and K3's backward run their products on the
+                tensor cores (HGMMA, HMMA in every instance's SASS), and
+                that they spill nothing;
   2. kernels    each hand-written kernel against its plain PyTorch version
                 at the four models' shapes, with CUDA-event timings (the
                 profiler's device time for the kernels that run shorter
@@ -38,7 +38,10 @@ Phases, one line of output each (more for the kernels):
                 and causal at the encdec and vlm phases' own shapes
                 (whisper's decoder, 8 x 448 bf16 and 2 x 448 f32 with
                 the backward; llama-3.2-vision's 64 / 8 heads of 128,
-                8 x 512 bf16);
+                8 x 512 bf16); K3's backward with its bound at 3xTF32
+                and at the CUDA cores and its workspace, and failing the
+                run unless it beats its plain version at whisper's
+                encoder shape;
   3. ref        reduced yi-9b, granite-moe, mamba2 and zamba2 served on the
                 card and on the CPU from the same weights: the same tokens;
                 the static ``Engine`` on reduced yi-9b (also with a window
@@ -92,7 +95,11 @@ and last the runtime end to end:
                 the profiled cost models, the plan, each iteration's wall
                 and stage times, launches per iteration gated exactly,
                 the weight sync's seconds and bytes, the actor's offload
-                against its state bytes, peak memory;
+                against its state bytes, peak memory; both runs strict
+                (flowlint passes 1-2 before every execute; the findings
+                and the lint's time printed), the auto run (two
+                iterations) traced and its plan-vs-actual report
+                printed;
  10. rlhf       ``RLHFRunner`` (actor, critic, reference, reward, rollout,
                 inference: the paper's PPO diamond) on stablelm-12b at
                 full width cut to 2 of 40 layers, f32: profile, plan
@@ -108,7 +115,15 @@ and last the runtime end to end:
                 collocated and once forced hybrid; the two trajectories
                 equal, the forced realization recorded, launches per
                 iteration gated exactly (K3 per act call and train
-                forward, no K1 or K2).
+                forward, no K1 or K2);
+ 12. recover    ``GRPORunner`` on yi-9b at full width cut to 2 layers,
+                f32 + AdamW, a checkpoint every iteration: the rollout
+                killed at iteration 1 and the run recovered once, equal
+                to a fresh resume from a copy of the checkpoint (rewards
+                within rtol 1e-4, final params bit for bit), launches
+                per iteration exact, the dead run's state freed before
+                the rebuild; checkpoint save and load GB/s and the
+                recovery's seconds by step.
 
 After the phases one line a kernel gives its time against its bound.
 The line before the last is the card's ``nvidia-smi`` name and power
@@ -210,14 +225,15 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
 
 # the kernels whose products run on the tensor cores, and the SASS
 # instruction of their products: K3's bf16 forward (wgmma), K4's bf16 (also
-# inside K5), K6's forward in bf16 and in f32 (3xTF32) and K6's backward
-# (3xTF32, both instances), all mma.sync
+# inside K5), K6's forward in bf16 and in f32 (3xTF32), K6's backward and
+# K3's backward product launches (3xTF32, every instance), all mma.sync
 TC_KERNELS = {"flash_fwd_wgmma_kernel": "HGMMA", "gmm_mma_kernel": "HMMA",
               "ssd_fwd_mma_kernel": "HMMA", "ssd_fwd_tf32_kernel": "HMMA",
-              "ssd_bwd_tf32_kernel": "HMMA"}
-# kernels that must spill nothing: those, and K3's backward products, whose
-# accumulators live in registers
-NO_SPILL = (*TC_KERNELS, "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+              "ssd_bwd_tf32_kernel": "HMMA", "flash_bwd_dkdv_kernel": "HMMA",
+              "flash_bwd_dq_kernel": "HMMA"}
+# kernels that must spill nothing: those, whose accumulators live in
+# registers
+NO_SPILL = tuple(TC_KERNELS)
 
 
 def kernel_name(mangled: str) -> str:
@@ -485,9 +501,12 @@ def flash_flops(B: int, S: int, heads, causal: bool = True) -> float:
     return 4.0 * B * H * D * flash_pairs(S, causal)
 
 
-def flash_bounds(dtype, B: int, S: int, heads=YI_HEADS, causal: bool = True):
+def flash_bounds(dtype, B: int, S: int, heads=YI_HEADS, causal: bool = True,
+                 bwd_rate: str = "3xtf32"):
     """(forward, backward) bounds of K3 at ``heads``: each a (ms, 'bytes'
-    or 'operations') pair."""
+    or 'operations') pair.  The backward's f32 products run as 3xTF32 on
+    the tensor cores (``bwd_rate``; "float32" gives the CUDA cores'
+    bound beside it)."""
     import torch
 
     H, KV, D = heads
@@ -503,7 +522,22 @@ def flash_bounds(dtype, B: int, S: int, heads=YI_HEADS, causal: bool = True):
     return (bound_ms(2 * act + kv_bytes + 4 * B * H * S,
                      4 * B * H * D * pairs, name),
             bound_ms(4 * act + 2 * kv_bytes + 4 * B * H * S,
-                     10 * B * H * D * pairs, name))
+                     10 * B * H * D * pairs,
+                     bwd_rate if dtype == torch.float32 else name))
+
+
+def flash_bwd_extra(dtype, B: int, S: int, heads, causal: bool = True,
+                    window: int = 0) -> str:
+    """The backward's bound at the CUDA cores' f32 rate (beside the
+    3xTF32 one) and its f32 workspace bytes, for a log line."""
+    from repro_torch.kernels import _build
+
+    H, KV, D = heads
+    cc, by = flash_bounds(dtype, B, S, heads, causal, "float32")[1]
+    ws = 4 * _build.library().flash_attention_bwd_workspace(
+        B, H, KV, S, D, int(causal), window)
+    return (f" ({cc:.4f} ms at the CUDA cores' f32 rate, {by}); f32 "
+            f"workspace {ws / 1e6:.2f} MB")
 
 
 def check_flash_attention(results: dict) -> None:
@@ -576,7 +610,8 @@ def check_flash_attention(results: dict) -> None:
         lib_both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), lib, dout))
         log(f"{line}; bwd kernel={bwd_ms:.4f} ms plain={plain_bwd_ms:.4f} "
             f"ms sdpa bwd={lib_bwd_ms:.4f} ms sdpa fwd+bwd="
-            f"{lib_both_ms:.4f} ms bound={bwd_bound:.4f} ms ({bwd_by})")
+            f"{lib_both_ms:.4f} ms bound={bwd_bound:.4f} ms ({bwd_by}, "
+            f"3xtf32){flash_bwd_extra(dtype, B, S, heads)}")
         if record:  # the train microbatch's shape and type
             results["flash_bwd"] = dict(
                 common, name="flash_attention_bwd",
@@ -1072,7 +1107,9 @@ def check_flash_zamba2() -> None:
                 lib_out, lib, c["dout"], retain_graph=True))
             bound, by = flash_bounds(dtype, B, S, ZAMBA2_HEADS)[1]
             line += (f"; bwd kernel={bms:.4f} ms sdpa bwd={lib_bwd_ms:.4f} "
-                     f"ms bound={bound:.4f} ms ({by})")
+                     f"ms bound={bound:.4f} ms ({by}, 3xtf32)"
+                     + flash_bwd_extra(dtype, B, S, ZAMBA2_HEADS,
+                                       window=4096))
             del lib, lib_out
         else:
             lib = [t.contiguous() for t in (q, k, v)]
@@ -1094,7 +1131,9 @@ def flash_timed(c: dict, dtype, B: int, S: int, heads,
     """K3 on a :func:`flash_case`'s inputs timed beside its plain version
     and ``scaled_dot_product_attention``, with the bound (over S(S+1)/2
     or S^2 pairs by the mask); with the case's backward also the
-    backward beside the plain one's and SDPA's.  Returns the log line."""
+    backward beside the plain one's and SDPA's, both its bounds and its
+    workspace.  Returns the log line; the backward's times land in
+    ``c["bwd_ms"]`` (kernel, plain, SDPA)."""
     import torch
     import torch.nn.functional as F
 
@@ -1128,8 +1167,10 @@ def flash_timed(c: dict, dtype, B: int, S: int, heads,
         lib_out = sdpa()
         lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
             lib_out, lib, dout, retain_graph=True))
+        c["bwd_ms"] = (bms, plain_bwd_ms, lib_bwd_ms)
         line += (f"; bwd kernel={bms:.4f} ms plain={plain_bwd_ms:.4f} ms "
-                 f"sdpa bwd={lib_bwd_ms:.4f} ms bound={bb:.4f} ms ({bby})")
+                 f"sdpa bwd={lib_bwd_ms:.4f} ms bound={bb:.4f} ms ({bby}, "
+                 f"3xtf32){flash_bwd_extra(dtype, B, S, heads, causal)}")
     return line
 
 
@@ -1197,24 +1238,27 @@ def check_flash_whisper(results: dict) -> None:
     the recompute's forward (8 x 1500, bf16) and the train microbatch's
     forward and backward (2 x 1500, f32), against the plain versions and
     timed (:func:`flash_timed`, the bound over all S^2 pairs), with the
-    backward's f32 workspace.  Its errors count in K3's entries."""
+    backward's f32 workspace.  Its errors count in K3's entries.  Fails
+    the run if the backward kernel is not faster than its plain version
+    at this shape (a fault ROADMAP.md once listed)."""
     import torch
-
-    from repro_torch.kernels import _build
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     heads, S = WHISPER_HEADS, WHISPER_FRAMES
-    H, _, D = heads
     for dtype, B, backward in ((torch.bfloat16, 8, False),
                                (torch.float32, 2, True)):
         c = flash_case(g, dtype, B, S, 0, backward, heads, causal=False)
         fold_flash_errors(results, c)
-        line = flash_timed(c, dtype, B, S, heads, causal=False)
+        log(flash_timed(c, dtype, B, S, heads, causal=False)
+            + " (whisper-large-v3 encoder)")
         if backward:
-            ws = 4 * _build.library().flash_attention_bwd_workspace(
-                B, H, H, S, D, 0, 0)
-            line += f"; f32 workspace (stored dS) {ws / 1e6:.1f} MB"
-        log(line + " (whisper-large-v3 encoder)")
+            kernel, plain, sdpa = c["bwd_ms"]
+            assert kernel < plain, (
+                f"K3 backward at whisper's encoder shape: {kernel:.4f} ms, "
+                f"not faster than its plain version ({plain:.4f} ms)")
+            log(f"kernels: K3 backward at whisper's encoder shape "
+                f"{kernel:.4f} ms < plain {plain:.4f} ms (SDPA backward "
+                f"{sdpa:.4f} ms)")
         del c
         torch.cuda.empty_cache()
 
@@ -2368,12 +2412,19 @@ def grpo(results: dict, mode: str) -> None:
     from repro_torch.train import AdamWConfig, TrainHParams
     from repro_torch.utils.treeutil import pytree_leaves
 
+    from repro_torch.analysis import analyze, format_findings
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.report import plan_vs_actual
+
     L = GRPO_LAYERS
     tag = f"grpo[{mode}]"
     reset_router()
     cfg = get_config("yi-9b").replace(num_layers=L)
+    # the auto run takes two iterations (the phase's time goes to recover)
     rl = GRPOConfig(batch_size=16, group_size=4, prompt_len=8,
-                    max_new_tokens=64, temperature=1.0, iterations=3,
+                    max_new_tokens=64, temperature=1.0,
+                    iterations=2 if mode == "auto" else 3,
                     profile_batches=(8, 16), mode=mode, seed=SEED)
     # the entropy bonus keeps the gradient alive while every reward of a
     # group is equal (random weights rarely answer right)
@@ -2404,6 +2455,19 @@ def grpo(results: dict, mode: str) -> None:
     # in place they would keep its state on the card after the run
     del runner.actor.offload, actor_offload
     runner.plan_execution()
+    # strict: every execute() lints the plan (flowlint passes 1-2) before
+    # binding a worker; a finding of severity error raises
+    runner.controller.strict = True
+    t0 = time.perf_counter()
+    findings = analyze(runner.plan.graph, runner.plan,
+                       cluster=runner.cluster,
+                       cfg=runner.controller.scheduler_cfg,
+                       cycle_specs=runner.cycle_specs())
+    lint_s = time.perf_counter() - t0
+    for line in format_findings(findings).splitlines():
+        log(f"{tag}: lint: {line}")
+    log(f"{tag}: strict lint of the plan (passes 1-2): {len(findings)} "
+        f"finding(s) in {lint_s * 1e3:.2f} ms; every iteration lints again")
     priced = {n: (cm.onload_time, cm.offload_time, cm.sync_time)
               for n, cm in runner.controller.profiles.items()}
     log(f"{tag}: yi-9b full width cut to {L} of 48 layers, f32 + AdamW "
@@ -2423,6 +2487,9 @@ def grpo(results: dict, mode: str) -> None:
     for line in runner.plan.pretty().splitlines():
         log(f"{tag}: plan: {line}")
     totals = [0, 0, 0, 0]
+    # the auto run is traced, for the plan-vs-actual report
+    tracer = obs_trace.install() if mode == "auto" else None
+    prev_reg = obs_metrics.set_registry(obs_metrics.MetricsRegistry())
     for it in range(rl.iterations):
         zero_launches()
         d0 = eng.decode_batches
@@ -2452,6 +2519,27 @@ def grpo(results: dict, mode: str) -> None:
             f"reward={st.mean_reward:+.3f} loss={m['loss']:+.5g} "
             f"entropy={m.get('entropy', float('nan')):.5g} "
             f"grad_norm={m.get('grad_norm', float('nan')):.5g}")
+    if tracer is not None:
+        obs_trace.uninstall()
+        t0 = time.perf_counter()
+        report = plan_vs_actual(runner.plan, runner.controller.profiles,
+                                tracer, rl.batch_size,
+                                iterations=rl.iterations)
+        report_s = time.perf_counter() - t0
+        for line in report.format().splitlines():
+            log(f"{tag}: plan-vs-actual: {line}")
+        log(f"{tag}: plan-vs-actual over {rl.iterations} traced "
+            f"iterations: predicted {report.predicted_wall:.4f} s, "
+            f"measured {report.measured_wall:.4f} s (x"
+            f"{report.wall_ratio:.3f}), bubble fraction "
+            f"{report.bubble_fraction():.4f}; {len(tracer.spans())} spans, "
+            f"report in {report_s:.3f} s")
+        for name, fields in obs_metrics.default_registry().snapshot(
+                ).items():
+            log(f"{tag}: metric {name} "
+                + " ".join(f"{k}={v:.6g}" for k, v in fields.items()))
+        del tracer, report
+    obs_metrics.set_registry(prev_reg)
     assert not all(torch.equal(a, b[..., :8]) for a, b in
                    zip(probe, pytree_leaves(runner.actor.params()))), \
         "grpo: the actor's params did not change"
@@ -2812,7 +2900,192 @@ def embodied(results: dict) -> None:
         results[key]["launches"] += n
 
 
+RECOVER_LAYERS = 2  # of yi-9b's 48: three runners' state and checkpoints
+
+
+def recover(results: dict) -> None:
+    """Kill-and-recover on the card: ``GRPORunner`` on yi-9b at full
+    width cut to 2 layers, f32 + AdamW, collocated (a plan that does not
+    move with the profile's timings), a checkpoint after every iteration
+    in a temporary directory.  A first runner takes one iteration and its
+    checkpoint is copied; a second resumes from it for three with the
+    rollout killed at its first call of iteration 1
+    (``FaultInjector(FaultSpec("rollout", iteration=1))``) and recovers;
+    a baseline resumes from the copy (and saves nothing).  Gates: exactly one recovery; the
+    recovered run's mean reward and accuracy equal the baseline's (JAX's
+    e2e tolerance, rtol 1e-4, atol 1e-5) and its final actor params bit
+    for bit; launches per iteration exact (as the grpo phase counts
+    them); the dead run's state freed before the rebuild and <= 256 MB
+    left on the card after the teardowns.  Prints the checkpoints' save
+    and load seconds and GB/s and the recovery's seconds by step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.primitives import reset_router
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultInjector, FaultSpec
+    from repro_torch.rl import GRPOConfig, GRPORunner
+    from repro_torch.train import AdamWConfig, TrainHParams
+    from repro_torch.utils.treeutil import pytree_leaves
+
+    L = RECOVER_LAYERS
+    tag = "recover"
+    cfg = get_config("yi-9b").replace(num_layers=L)
+    hp = TrainHParams(optimizer=AdamWConfig(lr=1e-5), entropy_coef=0.01)
+    io = {"save": [], "load": []}
+    rows = []
+    freed = []
+
+    def make(ck, iterations, injector=None, every=1):
+        reset_router()
+        rl = GRPOConfig(batch_size=16, group_size=4, prompt_len=8,
+                        max_new_tokens=16, temperature=1.0,
+                        iterations=iterations, profile_batches=(8, 16),
+                        mode="collocated", seed=SEED)
+        runner = GRPORunner(cfg, rl, hp, checkpoint_dir=ck,
+                            checkpoint_every=every, fault_injector=injector)
+        save, load = runner.save_trainer_checkpoint, \
+            runner.resume_trainer_checkpoint
+        run_iteration, teardown = runner.run_iteration, runner.teardown
+
+        def timed_save(it):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(it)
+            io["save"].append((time.perf_counter() - t0,
+                               runner.actor.state_bytes()))
+
+        def timed_load():
+            t0 = time.perf_counter()
+            start = load()
+            torch.cuda.synchronize()
+            if start:
+                io["load"].append((time.perf_counter() - t0,
+                                   runner.actor.state_bytes()))
+            return start
+
+        def counted(it):
+            zero_launches()
+            # no local reference to the engine: a failure's traceback
+            # keeps this frame, and with it whatever the frame holds
+            d0 = runner.rollout.engine.decode_batches
+            st = run_iteration(it)  # a WorkerFailure passes through
+            torch.cuda.synchronize()
+            k = grpo_launches()
+            db = runner.rollout.engine.decode_batches - d0
+            calls = {}
+            for name, *_ in runner.controller.last_timeline:
+                calls[name] = calls.get(name, 0) + 1
+            assert k == (L * db, db, L * (calls["inference"]
+                                          + calls["actor"]),
+                         L * calls["actor"]), (tag, it, k, db, calls)
+            rows.append((it, k))
+            return st
+
+        def measured_teardown():
+            teardown()
+            gc.collect()
+            torch.cuda.synchronize()
+            freed.append(torch.cuda.memory_allocated())
+
+        runner.save_trainer_checkpoint = timed_save
+        runner.resume_trainer_checkpoint = timed_load
+        runner.run_iteration = counted
+        runner.teardown = measured_teardown
+        return runner
+
+    def finish(runner):
+        runner.teardown()
+        del runner.save_trainer_checkpoint, runner.resume_trainer_checkpoint
+        del runner.run_iteration, runner.teardown
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="recover-")
+    try:
+        ck, ck_base = f"{tmp}/ck", f"{tmp}/ck-baseline"
+        warm = make(ck, 1)
+        warm.run(verbose=False)
+        finish(warm)
+        del warm
+        shutil.copytree(ck, ck_base)
+
+        inj = FaultInjector(FaultSpec("rollout", iteration=1))
+        faulted = make(ck, 3, inj)
+        torch.cuda.reset_peak_memory_stats()
+        faulted.run(verbose=False)
+        faulted_peak = torch.cuda.max_memory_allocated()
+        assert inj.fired and faulted.recoveries == 1, faulted.recoveries
+        assert faulted.recovery_log[0].worker == "rollout"
+        # the teardown inside the recovery let go of the dead run's state
+        dead_left = freed[-1] - start
+        assert dead_left <= 2**28, (
+            f"{tag}: {dead_left / 1e9:.3f} GB of the dead run outlived its "
+            "teardown")
+        rec = dict(faulted.recovery_seconds)
+
+        # the baseline resumes from the copy and saves nothing (saving
+        # moves no state; the phase's time goes to the other runs' saves)
+        base = make(ck_base, 3, every=0)
+        torch.cuda.reset_peak_memory_stats()
+        base.run(verbose=False)
+        base_peak = torch.cuda.max_memory_allocated()
+        got = [s for s in faulted.stats if s.iteration >= 1]
+        want = [s for s in base.stats if s.iteration >= 1]
+        assert [s.iteration for s in got] == [s.iteration for s in want]
+        for g, w in zip(got, want):
+            for f in ("mean_reward", "accuracy"):
+                np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                           rtol=1e-4, atol=1e-5, err_msg=f)
+        same = all(torch.equal(a, b) for a, b in zip(
+            pytree_leaves(faulted.actor.params()),
+            pytree_leaves(base.actor.params())))
+        assert same, f"{tag}: final actor params differ from the baseline's"
+        n_params = sum(t.numel() for t in pytree_leaves(
+            faulted.actor.params()))
+        for r in (faulted, base):
+            finish(r)
+        del faulted, base
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start
+    assert left <= 2**28, f"{tag}: {left / 1e9:.3f} GB outlived the runs"
+    for what in ("save", "load"):
+        secs = [t for t, _ in io[what]]
+        gb = io[what][0][1] / 1e9
+        log(f"{tag}: checkpoint {what} x{len(secs)}: {gb:.3f} GB each "
+            "(f32 params + AdamW), "
+            + ", ".join(f"{t:.3f} s ({gb / t:.2f} GB/s)" for t in secs))
+    log(f"{tag}: yi-9b full width cut to {L} layers ({n_params / 1e9:.3f} B "
+        f"params), collocated; the rollout killed at iteration 1, "
+        f"{len(rows)} iterations counted exactly "
+        + ", ".join(f"it {it}: K1={k[0]} K2={k[1]} K3={k[2]} K3bwd={k[3]}"
+                    for it, k in rows))
+    log(f"{tag}: recovered once in {sum(rec.values()):.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in rec.items())
+        + f"; the dead run's state freed before the rebuild ("
+        f"{dead_left / 1e6:.1f} MB above the phase's start after its "
+        f"teardown); peak {faulted_peak / 1e9:.2f} GB faulted, "
+        f"{base_peak / 1e9:.2f} GB baseline")
+    log(f"{tag}: rewards and accuracy equal the fresh-resume baseline "
+        f"(rtol 1e-4, atol 1e-5), final actor params bit for bit; "
+        f"after teardown {left / 1e6:.1f} MB more allocated than before; "
+        f"phase {time.perf_counter() - t_phase:.1f} s; card: "
+        f"{card_line()}")
+    totals = [sum(k[i] for _, k in rows) for i in range(4)]
+    for key, n in zip(("paged_attention", "fused_sample", "flash_fwd",
+                       "flash_bwd"), totals):
+        results[key]["launches"] += n
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2919,6 +3192,8 @@ def main() -> int:
     # the paper's two other workflow families
     rlhf(results)
     embodied(results)
+    # checkpoints and kill-and-recover
+    recover(results)
 
     kernels = [results[k] for k in ("paged_attention", "fused_sample",
                                     "flash_fwd", "flash_bwd",
@@ -2927,6 +3202,9 @@ def main() -> int:
                                     "ssm_update")]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
+        "included")
     for r in kernels:
         lib = (f", library {r['library_ms']:.4f} ms" if r["library_ms"]
                else "")

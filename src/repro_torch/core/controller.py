@@ -9,9 +9,8 @@ worker-group-level timers.
 the traced logical flow + profiles, runs Algorithm 1, and returns an
 execution plan (Schedule tree + placement) that ``execute()`` runs.
 
-A copy of the JAX package's ``core/controller.py``, but for strict mode:
-flowlint (the JAX package's ``analysis``) is not ported yet, so
-``strict=True`` raises instead of linting.
+A copy of the JAX package's ``core/controller.py``; strict mode lints
+with the port's flowlint (``repro_torch.analysis``, passes 1 and 2).
 """
 from __future__ import annotations
 
@@ -41,12 +40,6 @@ from repro_torch.core.simulator import Simulator
 from repro_torch.core.switching import ContextSwitcher
 from repro_torch.core.worker import Worker, WorkerFailure, WorkerGroup
 from repro_torch.obs import trace as _trace
-
-
-STRICT_UNPORTED = (
-    "strict mode lints every plan with flowlint, which the port does not "
-    "have yet (ROADMAP.md queue 1, item 11: observability and lint on the "
-    "port); use strict=False")
 
 
 @dataclass
@@ -83,10 +76,9 @@ class Controller:
         self.cluster = cluster
         self.profiles = profiles or {}
         self.scheduler_cfg = scheduler_cfg or SchedulerConfig()
-        # strict=True would run flowlint Pass 1-2 on every plan inside
-        # execute(); without the lint passes it is refused outright
-        if strict:
-            raise NotImplementedError(STRICT_UNPORTED)
+        # strict=True runs flowlint Pass 1-2 on every plan inside
+        # execute() and rejects it (FlowLintError) BEFORE any worker is
+        # bound or run
         self.strict = strict
         self.tracer = GraphTracer()
         self.router = global_router()
@@ -228,10 +220,19 @@ class Controller:
 
     def _lint(self, plan: ExecutionPlan,
               cycle_specs: Optional[Dict[str, Any]]) -> None:
-        """Strict mode: flowlint Pass 1-2 over the plan.  The lint passes
-        are not ported, so a strict controller refuses to run a plan
-        rather than run it unchecked."""
-        raise NotImplementedError(STRICT_UNPORTED)
+        """Strict mode: flowlint Pass 1-2 over the plan (and the graph
+        it was derived from, if it carries one).  Raises FlowLintError
+        on any error-severity finding — before bind_placement, so a
+        corrupted plan never touches a worker or a device.  Imported
+        lazily: analysis depends on core, never the reverse."""
+        from repro_torch.analysis import analyze, filter_findings
+        from repro_torch.analysis.findings import FlowLintError
+        findings = analyze(getattr(plan, "graph", None), plan,
+                           cluster=self.cluster, cfg=self.scheduler_cfg,
+                           cycle_specs=cycle_specs)
+        errors = filter_findings(findings, "error")
+        if errors:
+            raise FlowLintError(errors)
 
     def execute(self, plan: ExecutionPlan, workers: Dict[str, Any],
                 task_fns: Dict[str, Callable], batch,

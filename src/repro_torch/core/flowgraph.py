@@ -76,6 +76,15 @@ class DiGraph:
     def in_degree(self, n: str) -> int:
         return len(self._pred[n])
 
+    def out_degree(self, n: str) -> int:
+        return len(self._succ[n])
+
+    def has_edge(self, u: str, v: str) -> bool:
+        return u in self._succ and v in self._succ[u]
+
+    def number_of_nodes(self) -> int:
+        return len(self._node)
+
     def __iter__(self) -> Iterator[str]:
         return iter(self._node)
 
@@ -172,6 +181,100 @@ def strongly_connected_components(g: DiGraph) -> Iterator[Set[str]]:
                 yield scc
             else:
                 stack.append(v)
+
+
+def weakly_connected_components(g: DiGraph) -> Iterator[Set[str]]:
+    """Components of the graph with edge directions ignored, in
+    networkx's order: one per unseen node in node order, each the set a
+    breadth-first walk (successors before predecessors) collects, copied
+    as networkx copies it."""
+    seen: Set[str] = set()
+    n = len(g._node)
+    for v in g:
+        if v in seen:
+            continue
+        comp = {v}
+        level = [v]
+        while level and len(comp) < n:
+            nxt = []
+            for u in level:
+                for w in itertools.chain(g._succ[u], g._pred[u]):
+                    if w not in comp:
+                        comp.add(w)
+                        nxt.append(w)
+                if len(comp) == n:
+                    break
+            level = nxt
+        comp = set(comp)
+        seen.update(comp)
+        yield comp
+
+
+class NoCycle(ValueError):
+    """:func:`find_cycle` found no cycle."""
+
+
+def find_cycle(g: DiGraph) -> List[Tuple[str, str]]:
+    """The edges of the first cycle a depth-first walk over the edges
+    meets, in networkx's ``find_cycle`` order: walks start at each
+    unexplored node in node order, edges are taken in edge order, each
+    edge once, and the cycle is returned from the edge that leaves the
+    node it closes on.  Raises :class:`NoCycle` on a DAG."""
+    explored: Set[str] = set()
+    for start in g:
+        if start in explored:
+            continue
+        edges: List[Tuple[str, str]] = []
+        seen = {start}
+        active = {start}
+        previous_head = None
+        for tail, head in _edge_dfs(g, start):
+            if head in explored:
+                continue
+            if previous_head is not None and tail != previous_head:
+                # backtracked: pop the path back to this edge's tail
+                while True:
+                    try:
+                        popped = edges.pop()
+                    except IndexError:
+                        edges = []
+                        active = {tail}
+                        break
+                    active.remove(popped[1])
+                    if edges and tail == edges[-1][1]:
+                        break
+            edges.append((tail, head))
+            if head in active:
+                i = next(i for i, e in enumerate(edges) if e[0] == head)
+                return edges[i:]
+            seen.add(head)
+            active.add(head)
+            previous_head = head
+        explored.update(seen)
+    raise NoCycle("no cycle found")
+
+
+def _edge_dfs(g: DiGraph, start: str) -> Iterator[Tuple[str, str]]:
+    """Every edge reachable from ``start`` once, depth first, each
+    node's edges in edge order (networkx's ``edge_dfs``)."""
+    visited_edges: Set[Tuple[str, str]] = set()
+    visited: Set[str] = set()
+    pending: Dict[str, Iterator[str]] = {}
+    stack = [start]
+    while stack:
+        node = stack[-1]
+        if node not in visited:
+            pending[node] = iter(list(g._succ[node]))
+            visited.add(node)
+        nxt = next(pending[node], None)
+        if nxt is None:
+            stack.pop()
+            continue
+        edge = (node, nxt)
+        if edge not in visited_edges:
+            visited_edges.add(edge)
+            stack.append(nxt)
+            yield edge
 
 
 def condensation(g: DiGraph) -> Tuple[DiGraph, Dict[int, Set[str]]]:

@@ -244,6 +244,16 @@ class Worker:
                 moved.append(k)
         return tuple(moved)
 
+    def release_state(self) -> None:
+        """Drop every tensor this worker holds (registered state and its
+        host copies): a torn-down worker must not keep its memory while a
+        recovery builds its successor."""
+        with self._state_lock:
+            for k in self._state:
+                self._state[k] = None
+            self._host_state.clear()
+            self._offloaded.clear()
+
     # ------------------------------------------------------------------
     def _timed(self, fn_name: str, fn: Callable, *args, **kw):
         t0 = time.perf_counter()

@@ -7,8 +7,9 @@
 // scheme, as up to four launches on one stream:
 //
 //   1. delta = rowsum(dO * O)            one thread per (b, h, row)
-//   2. dK, dV per (key-tile pair, group of query heads, kv head, b); each
-//      step also stores its 64 x 64 tile of dS = P * (dP - delta) in f32
+//   2. dK, dV per (key tile, or key-tile pair under a causal mask; group
+//      of query heads; kv head; b); each step also stores its 64 x 64 tile
+//      of dS = P * (dP - delta) in f32
 //   3. (when a KV head's query heads are split over blocks) the f32
 //      partial dK, dV of the groups summed in group order
 //   4. dQ = dS K per (b, h, 64-query tile) from those tiles, the longest
@@ -19,76 +20,74 @@
 // order, so two calls give the same bits.
 //
 // Bound on this card: operations.  Five products of 2 * D flops per live
-// (query, key) pair (S, dP, dV, dK, dQ), all in full f32 on the CUDA cores
-// (TF32 would miss the f32 gates).  Keeping dS (4 bytes a live pair: 143
-// MB of scratch at yi-9b's train shape, written once and read once) spares
-// launch 4 the recompute of S and dP, which would make seven products of
-// five.  What the design does about the rest:
+// (query, key) pair (S, dP, dV, dK, dQ), every one on the tensor cores as
+// 3xTF32 (mma.sync m16n8k8, each f32 operand a TF32 hi/lo pair:
+// mma_common.cuh), where the earlier design ran them in f32 on the CUDA
+// cores.  Storing dS (4 bytes a live pair: 378 MB at whisper-large-v3's
+// encoder shape, written once and read once) spares launch 4 the rebuild
+// of S and dP, which would make seven products of five; measured on the
+// card, the rebuild cost launch 4 three times its time, more than the
+// traffic it saves (PERF.md).
 //
-// - Balanced blocks.  A block of launch 2 takes key tile j and key tile
-//   n - 1 - j, so under a causal mask every block walks n + 1 query tiles
-//   per head: at yi-9b's train shape (B 2, H 32, KV 4, S 1024, n = 16)
-//   17 (head, query-tile) steps per block with one head per block, 512
-//   blocks, where one block per key tile and KV head would give 128
-//   blocks of 8 to 128 steps.  The G = H / KV query heads of a KV head
-//   are split over the fewest groups that give 2 blocks per SM (yi 8
-//   groups, granite-moe 3, zamba2 1); each group writes f32 partial dK,
-//   dV, summed in group order by launch 3.  Launch 4 runs its query tiles
-//   longest first.
-// - Register tiles that shared memory can feed.  256 threads; a thread
-//   holds a 4 x 4 tile of S and of dP (rows ty + 16 i, keys tx + 16 j) and
-//   a 4-row x (4 NCH)-column tile of the dV and dK (or dQ) accumulators.
-//   Every operand is read as a 16-byte LDS.128: S and dP along d (tiles
-//   [row][d], d contiguous), the updates along their output columns (P
-//   and dS [query][key], the stored dS^T [key][query] for dQ).  A warp spans 4 ty x
-//   8 tx, so a read serves 4 or 8 distinct 16-byte chunks and broadcasts
-//   the rest: 16 wavefronts a warp for 128 FMAs of S and dP per 4 d, 6
-//   for 64 FMAs of the updates per query row (8 and 10.7 FMA issues per
-//   wavefront, against the 4 at which shared memory keeps up).  Tile rows
-//   are padded to an odd number of 16-byte chunks and P and dS go to a
-//   [query][key] buffer of pitch 72: no bank conflicts in either.
-// - Asynchronous staging: 16-byte cp.async into a 2-slot ring, so the
-//   next query tile's Q, dO, lse and delta (launch 2) or the next key
-//   tile's K and dS tile (launch 4) arrive while the current one is
-//   multiplied.  bf16 inputs, or f32 views whose rows are not 16-byte aligned, are
-//   converted element by element into the same f32 tiles instead (off the
-//   main paths, which train in f32).
-// - Exact zeros on rows with one live key.  delta is the same fmaf chain,
-//   over d in increasing order from 0, as each element of dP; where a row
-//   sees one key, O equals that key's V, so dP - delta is exactly 0 and
-//   dQ and dK get exact zeros.  S is the forward's own chain too, scaled
-//   by a rounded product (__fmul_rn: no fused multiply-add with lse), so
-//   P is exactly 1 there and dV is exactly dO.
+// Each product launch is a 64 x 64 tile loop in 8 warps.  In launch 2
+// warp w owns keys 16 (w % 4) .. + 15 and, for the score products (S^T =
+// K Q^T and dP^T = V dO^T), queries 32 (w / 4) .. + 31 of the step's
+// tile; the score tiles go through shared memory in fragment order (one
+// float4 a lane, conflict free), where the same warp row reads them back
+// as the A operand of dV += P^T dO and dK += dS^T Q over all 64 queries,
+// the output columns split in halves between w and w + 4.  The k order
+// of those products is permuted (A column t is k 2t, t + 4 is 2t + 1) so
+// that a C fragment is an A fragment without a shuffle.  Launch 4 reads
+// dS from the stored [key][query] tiles the same way.  Staged f32 tiles
+// have a pitch of D_pad + 4 floats (D_pad: D rounded up to 16, and to 64
+// below it; the pitch is 4 or 20 mod 32), so every fragment read (8 rows
+// x 4 columns, or rows 2t, 2t + 1 x 8 columns) hits 32 distinct banks.
 //
-// Shared memory (f32 tiles of pitch P = tile_pitch(D)): launch 2 holds K,
-// V, a 2-slot ring of Q and dO, one [query][key] buffer for P and then dS,
-// and the ring's lse and delta: 222,208 B at D = 128, one block an SM.
-// Past D = 128 (stablelm-12b's 160) two slots would pass the SM's 227 KB,
-// so the ring has one: the next Q and dO are staged once the step has
-// read them (187,392 B at D = 160, 220,160 B at the limit of 192), and a
-// thread's accumulators grow to NCH = 3 chunks (96 f32 of dK and dV).
-// Launch 4 holds a 2-slot ring of K and dS^T tiles: 100,352 B at D = 128,
-// two blocks an SM.
+// - The schedule.  A bidirectional mask gives every key tile the same
+//   work, so launch 2 runs one key tile a block (whisper-large-v3's
+//   encoder, B 2, 20 heads, S 1500: 960 blocks); a causal mask pairs key
+//   tiles j and n - 1 - j, so every block walks n + 1 query tiles per head.
+//   The G = H / KV query heads of a KV head are split over the fewest
+//   groups that give 2 blocks per SM; each group writes f32 partial dK, dV,
+//   summed in group order by launch 3.  At D <= 64 launch 2 fits two
+//   blocks an SM (103 KB of shared memory), past it one; launch 4 two up
+//   to D = 128 (a 2-slot ring of dS and K tiles).
+// - Staging.  16-byte cp.async of f32 rows (bf16 inputs, or f32 views whose
+//   rows are not 16-byte aligned, converted element by element instead: off
+//   the main paths, which train in f32); launch 2's Q and dO have one slot,
+//   staged as soon as the step's last product has read them.
+// - The element pass.  Only a tile the mask cuts (a diagonal, a window
+//   edge, the ragged tail, a row with one key) tests each element; the
+//   others take exp2 of a scaled score and subtract delta.
+// - Exact zeros on rows with one live key.  A softmax over one key is 1
+//   with a gradient of 0, so where the mask leaves a query row one key (a
+//   causal first row, window 1, S 1) P is set to exactly 1 and dS to
+//   exactly 0: dQ and dK get exact zeros from those rows.  The dV product
+//   takes dO as three TF32 parts (h + m + l = dO exactly) beside P's hi/lo,
+//   four products where the others take three, so P = 1 passes dO through
+//   bit for bit: where every row sees one key, dV is dO.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace {
 
-constexpr int kB = 64;           // query and key tile rows
-constexpr int kThreads = 256;
-constexpr int kPP = kB + 8;      // pitch of P / dS [query][key]
-// head_dim: launch 2's K, V, Q and dO tiles of 64 f32 rows fill 215 KB at
-// 192 with one slot of Q and dO, and pass the SM's 227 KB above 200
-constexpr int kMaxD = 192;
+using mma::mma_3xtf32;
+using mma::mma_tf32;
+using mma::Tf32;
 
-// slots of launch 2's Q / dO ring: two (staging overlaps the products) up
-// to D = 128, where they fill 217 KB; one past it
-__host__ __device__ constexpr int ring_slots(int nch) {
-  return nch <= 2 ? 2 : 1;
-}
+constexpr int kB = 64;  // query and key tile rows
+constexpr int kThreads = 256;
+// head_dim: launch 2's K, V, Q and dO tiles of 64 f32 rows with one score
+// buffer fill 213 KB at 192, and pass the SM's 227 KB above 200
+constexpr int kMaxD = 192;
+constexpr int kFrags = kB * kB / 4;  // float4s of a 64 x 64 score tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDP = kB + 4;  // pitch of launch 4's staged dS^T tiles
 
 struct Strides {
   long long b, h, s;
@@ -108,13 +107,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Row pitch (floats) of a staged tile: D rounded up to 4, plus an odd
-// number of 16-byte chunks in all, so 8 consecutive rows read at one
-// column chunk fall in 8 different bank groups.
-__host__ __device__ inline int tile_pitch(int D) {
-  int chunks = (D + 3) / 4 + 1;
-  if (!(chunks & 1)) ++chunks;
-  return 4 * chunks;
+// D rounded up to 16 (a warp's half of the output columns is whole
+// 8-column n-tiles), and every D <= 64 to 64: the instance that takes
+// them (NT = 4) then knows its tile pitch at compile time, which spares
+// the registers of two blocks an SM their address arithmetic
+__host__ __device__ constexpr int pad_d(int D) {
+  return D <= 64 ? 64 : (D + 15) & ~15;
+}
+// row pitch (floats) of a staged tile
+__host__ __device__ constexpr int tile_pitch(int D) { return pad_d(D) + 4; }
+// D_pad of the instance with NT n-tiles: a constant at NT = 4
+template <int NT>
+__device__ __forceinline__ int padded(int D) {
+  return NT == 4 ? 64 : pad_d(D);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const void* src,
@@ -142,33 +147,34 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows r0 .. r0 + kB - 1 of an (S, D) matrix with row stride ss into a
-// tile of pitch P; rows past S and columns past D read as zeros.  `vec`
-// (f32, D % 4 == 0, 16-byte aligned rows): 16-byte cp.async, waited for
-// by the caller; otherwise element loads converted to f32 and stored.
+// tile of pitch D_pad + 4, columns 0 .. D_pad - 1; rows past S and columns
+// past D read as zeros.  `vec` (f32, D % 4 == 0, 16-byte aligned rows):
+// 16-byte cp.async (zero-filled where out of range), waited for by the
+// caller; otherwise element loads converted to f32 and stored.
 template <typename T>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
                                            long long ss, int r0, int S,
-                                           int D, int P, bool vec,
+                                           int D, int DP, bool vec,
                                            float* dst) {
-  const int Dc = (D + 3) >> 2;
+  const int W = DP + 4;
   if constexpr (std::is_same<T, float>::value) {
     if (vec) {
+      const int Dc = DP >> 2;
       for (int e = threadIdx.x; e < kB * Dc; e += kThreads) {
         const int r = e / Dc;
         const int c = e - r * Dc;
-        const bool ok = r0 + r < S;
-        cp_async16(dst + r * P + 4 * c,
+        const bool ok = r0 + r < S && 4 * c < D;
+        cp_async16(dst + r * W + 4 * c,
                    ok ? src + (long long)(r0 + r) * ss + 4 * c : src,
                    ok ? 16 : 0);
       }
       return;
     }
   }
-  const int W = 4 * Dc;
-  for (int e = threadIdx.x; e < kB * W; e += kThreads) {
-    const int r = e / W;
-    const int d = e - r * W;
-    dst[r * P + d] = (r0 + r < S && d < D)
+  for (int e = threadIdx.x; e < kB * DP; e += kThreads) {
+    const int r = e / DP;
+    const int d = e - r * DP;
+    dst[r * W + d] = (r0 + r < S && d < D)
                          ? to_f32(src[(long long)(r0 + r) * ss + d])
                          : 0.f;
   }
@@ -191,6 +197,14 @@ __device__ __forceinline__ bool allowed(int qi, int kj, int S, int causal,
   return ok;
 }
 
+// query row qi (< S) sees exactly one key: its softmax is 1, its gradient 0
+__device__ __forceinline__ bool one_key(int qi, int S, int causal,
+                                        int window) {
+  const int hi = causal ? qi : S - 1;
+  const int lo = window > 0 ? max(0, qi - window + 1) : 0;
+  return hi == lo;
+}
+
 // The key tiles [tb, te) that query tile i may see (the same set, seen
 // from the key side, as the query tiles launch 2 walks for a key tile).
 __host__ __device__ inline void key_tiles(int i, int S, int causal,
@@ -198,6 +212,26 @@ __host__ __device__ inline void key_tiles(int i, int S, int causal,
   const int q0 = i * kB;
   *tb = (window > 0 ? (q0 - window + 1 > 0 ? q0 - window + 1 : 0) : 0) / kB;
   *te = ((causal ? (S < q0 + kB ? S : q0 + kB) : S) + kB - 1) / kB;
+}
+
+// (query tile q0, key tile k0) holds an element the mask hides, a row past
+// S, or a row that sees one key: the step takes the per-element path
+__device__ __forceinline__ bool tile_edge(int q0, int k0, int S, int causal,
+                                          int window) {
+  return q0 + kB > S || k0 + kB > S || (causal && k0 + kB - 1 > q0) ||
+         (window > 0 && k0 <= q0 + kB - 1 - window) || window == 1 ||
+         (causal && q0 == 0);
+}
+
+// An f32 operand as a TF32 pair in two operations: hi is a with its low 13
+// bits cleared, lo = a - hi exactly, passed whole (mma.sync reads a .tf32
+// operand's top 19 bits, so lo is truncated to TF32 there): a product
+// keeps ~2^-21 of |a b|.
+__device__ __forceinline__ Tf32 tf32_split(float a) {
+  Tf32 v;
+  v.h = __float_as_uint(a) & 0xffffe000u;
+  v.l = __float_as_uint(a - __uint_as_float(v.h));
+  return v;
 }
 
 // dS tiles before query tile i's in a head's run of live (query, key)
@@ -213,83 +247,137 @@ __host__ __device__ inline long long tiles_before(int i, int S, int causal,
   return n;
 }
 
-// s = Q K^T and dp = dO V^T for the thread's 4 x 4 tile (query rows
-// ty + 16 i, keys tx + 16 j): each element one fmaf chain over d in
-// increasing order from 0, the forward's order and delta's.  U column
-// chunks in flight: 2, or 1 beside NCH = 3's 96 accumulators.
-template <int U>
-__device__ __forceinline__ void scores(const float* q_s, const float* do_s,
-                                       const float* k_s, const float* v_s,
-                                       int Dc, int P, int ty, int tx,
-                                       float s[4][4], float dp[4][4]) {
+// --- fragments (g = lane / 4, t = lane % 4) --------------------------------
+
+// A (16 x 8): rows r0 + g, r0 + g + 8; columns k0 + t, k0 + t + 4
+__device__ __forceinline__ void frag_a(const float* m, int W, int r0, int k0,
+                                       Tf32 (&a)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = m + (r0 + g) * W + k0 + t;
+  a[0] = tf32_split(p[0]);
+  a[1] = tf32_split(p[8 * W]);
+  a[2] = tf32_split(p[4]);
+  a[3] = tf32_split(p[8 * W + 4]);
+}
+
+// B (8 x 8) of the product with the tile's transpose: B[k][n] =
+// m[n0 + n][k0 + k]
+__device__ __forceinline__ void frag_bt(const float* m, int W, int n0,
+                                        int k0, Tf32 (&b)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = m + (n0 + g) * W + k0 + t;
+  b[0] = tf32_split(p[0]);
+  b[1] = tf32_split(p[4]);
+}
+
+// B of the tile as stored, B[k][n] = m[k0 + k][n0 + n], in the permuted k
+// order: b0 row k0 + 2t, b1 row k0 + 2t + 1
+__device__ __forceinline__ const float* frag_bp_ptr(const float* m, int W,
+                                                    int k0, int n0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  return m + (k0 + 2 * t) * W + n0 + g;
+}
+
+// an f32 as three TF32 parts with h + m + l == x exactly: h and m the
+// roundings of x and of what h leaves (11 significant bits each), l the
+// last <= 2 bits, which the tensor cores' 19-bit read keeps whole
+struct Tf32x3 {
+  uint32_t h, m, l;
+};
+
+__device__ __forceinline__ Tf32x3 tf32_exact(float x) {
+  Tf32x3 v;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(v.h) : "f"(x));
+  const float r = x - __uint_as_float(v.h);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(v.m) : "f"(r));
+  v.l = __float_as_uint(r - __uint_as_float(v.m));
+  return v;
+}
+
+// c += a b with a in hi/lo parts and b whole (three parts): the small
+// terms first, so a = 1 (hi 1, lo 0) against zeros elsewhere gives b
+// exactly
+__device__ __forceinline__ void mma_4xtf32(float (&c)[4], const Tf32 (&a)[4],
+                                           const Tf32x3 (&b)[2]) {
+  mma_tf32(c, a[0].l, a[1].l, a[2].l, a[3].l, b[0].h, b[1].h);
+  mma_tf32(c, a[0].h, a[1].h, a[2].h, a[3].h, b[0].l, b[1].l);
+  mma_tf32(c, a[0].h, a[1].h, a[2].h, a[3].h, b[0].m, b[1].m);
+  mma_tf32(c, a[0].h, a[1].h, a[2].h, a[3].h, b[0].h, b[1].h);
+}
+
+// a C fragment (rows g, g + 8; columns 2t, 2t + 1 of n-tile j of the
+// warp's 16-row block rb) into a fragment-order score buffer, where it is
+// the A fragment of k-step 4 hh + j in the permuted k order
+__device__ __forceinline__ void put_frag(float4* buf, int rb, int ks,
+                                         const float (&c)[4]) {
+  buf[(rb * 8 + ks) * 32 + (threadIdx.x & 31)] =
+      make_float4(c[0], c[2], c[1], c[3]);
+}
+
+__device__ __forceinline__ void get_frag(const float4* buf, int rb, int ks,
+                                         Tf32 (&a)[4]) {
+  const float4 v = buf[(rb * 8 + ks) * 32 + (threadIdx.x & 31)];
+  a[0] = tf32_split(v.x);
+  a[1] = tf32_split(v.y);
+  a[2] = tf32_split(v.z);
+  a[3] = tf32_split(v.w);
+}
+
+// S = A_s B_s^T and dP = A_d B_d^T for the warp's 16 rows r0 .. of the
+// fixed tiles and 8 JN rows c0 .. of the moving ones (JN n-tiles), over
+// the DP / 8 k-steps of the head dim
+template <int JN>
+__device__ __forceinline__ void scores(const float* as, const float* ad,
+                                       const float* bs, const float* bd,
+                                       int W, int DP, int r0, int c0,
+                                       float (&s)[JN][4],
+                                       float (&dp)[JN][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < JN; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll U
-  for (int c = 0; c < Dc; ++c) {
-    float4 a[4], b[4];
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < DP; k0 += 8) {
+    Tf32 a[4];
+    frag_a(as, W, r0, k0, a);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * P + 4 * c);
+    for (int j = 0; j < JN; ++j) {
+      Tf32 b[2];
+      frag_bt(bs, W, c0 + 8 * j, k0, b);
+      mma_3xtf32(s[j], a, b);
+    }
+    frag_a(ad, W, r0, k0, a);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * P + 4 * c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(do_s + (ty + 16 * i) * P + 4 * c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(v_s + (tx + 16 * j) * P + 4 * c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dp[i][j] = fmaf(a[i].x, b[j].x, dp[i][j]);
-        dp[i][j] = fmaf(a[i].y, b[j].y, dp[i][j]);
-        dp[i][j] = fmaf(a[i].z, b[j].z, dp[i][j]);
-        dp[i][j] = fmaf(a[i].w, b[j].w, dp[i][j]);
-      }
+    for (int j = 0; j < JN; ++j) {
+      Tf32 b[2];
+      frag_bt(bd, W, c0 + 8 * j, k0, b);
+      mma_3xtf32(dp[j], a, b);
+    }
   }
 }
 
-// acc[i][4 n + e] += sum over the kB rows r of w[r][4 y + i] * x[r][col]
-// with col = 4 (x0 + 16 n) + e: dV += P^T dO and dK += dS^T Q (w is
-// [query][key], y the key group) or dQ += dS K (w is dS^T [key][query],
-// y the query group).  Column chunks past the last are clamped onto it
-// and their sums never written.
-template <int NCH, int WP>
-__device__ __forceinline__ void update(const float* w_s, const float* x_s,
-                                       int P, int Dc, int y, int x0,
-                                       float acc[4][4 * NCH]) {
-  int col[NCH];
+// acc[j] += A x[:, n0 + 8 j ..] over the 64 rows of x, A the warp's rows
+// of a fragment-order score buffer; j < nt of NT n-tiles.  `exact` takes x
+// in three parts (the dV product).
+template <int NT, bool exact>
+__device__ __forceinline__ void update(const float4* buf, const float* x,
+                                       int W, int rb, int n0, int nt,
+                                       float (&acc)[NT][4]) {
+#pragma unroll 1
+  for (int ks = 0; ks < 8; ++ks) {
+    Tf32 a[4];
+    get_frag(buf, rb, ks, a);
+    const float* p = frag_bp_ptr(x, W, 8 * ks, n0);
 #pragma unroll
-  for (int n = 0; n < NCH; ++n) col[n] = 4 * min(x0 + 16 * n, Dc - 1);
-  // rows in flight: 4 up to NCH = 2; at NCH = 3 the 96 accumulators of
-  // launch 2 leave registers for 2 (4 spilled at 255 registers)
-  constexpr int kRows = NCH <= 2 ? 4 : 2;
-#pragma unroll kRows
-  for (int r = 0; r < kB; ++r) {
-    const float4 w4 = *reinterpret_cast<const float4*>(w_s + r * WP + 4 * y);
-    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int n = 0; n < NCH; ++n) {
-      const float4 x = *reinterpret_cast<const float4*>(x_s + r * P + col[n]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][4 * n + 0] = fmaf(w[i], x.x, acc[i][4 * n + 0]);
-        acc[i][4 * n + 1] = fmaf(w[i], x.y, acc[i][4 * n + 1]);
-        acc[i][4 * n + 2] = fmaf(w[i], x.z, acc[i][4 * n + 2]);
-        acc[i][4 * n + 3] = fmaf(w[i], x.w, acc[i][4 * n + 3]);
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        if constexpr (exact) {
+          const Tf32x3 b[2] = {tf32_exact(p[8 * j]), tf32_exact(p[W + 8 * j])};
+          mma_4xtf32(acc[j], a, b);
+        } else {
+          const Tf32 b[2] = {tf32_split(p[8 * j]), tf32_split(p[W + 8 * j])};
+          mma_3xtf32(acc[j], a, b);
+        }
       }
     }
   }
@@ -330,45 +418,64 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
   delta[row] = acc;
 }
 
+// blocks an SM of the product launches: two where their tiles fit twice
+// (D <= 64; the second block hides the first one's staging and barriers)
+__host__ __device__ constexpr int blocks_per_sm(int NT) {
+  return NT <= 4 ? 2 : 1;
+}
+
 // ---------------------------------------------------------------------------
-// 2. dK, dV per (key-tile pair, query-head group, kv head, b)
+// 2. dK, dV per (key tile or causal pair, query-head group, kv head, b)
 // ---------------------------------------------------------------------------
-template <typename T, int NCH>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
-    float* __restrict__ ds, Strides sq, Strides sk, Strides sv, Strides sdo,
-    Strides sdk, Strides sdv, int B, int H, int KV, int S, int D, int causal,
-    int window, float scale, int groups, int vec) {
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(NT))
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, float* __restrict__ part,
+                          float* __restrict__ ds, Strides sq, Strides sk,
+                          Strides sv, Strides sdo,
+                          Strides sdk, Strides sdv, int B, int H, int KV,
+                          int S, int D, int causal, int window, float scale,
+                          int groups, int vec) {
+  // P and dS in two buffers, or (past D = 128) one, dS written once the dV
+  // product has read P
+  constexpr bool kTwoBuf = NT <= 8;
+  const int DP = padded<NT>(D), W = DP + 4, nt = DP / 16;
   const int nk = (S + kB - 1) / kB;
-  const long long n_tiles = tiles_before(nk, S, causal, window);
+  // the dS tiles of a head, read where a step stores its tile (held in
+  // shared memory, not in a register the whole loop)
+  __shared__ long long n_tiles_s;
+  if (threadIdx.x == 0) n_tiles_s = tiles_before(nk, S, causal, window);
   const int kvh = blockIdx.y / groups;
   const int grp = blockIdx.y - kvh * groups;
   const int b = blockIdx.z;
   const int hg = H / KV / groups;  // query heads of this block
   const int h0 = kvh * (H / KV) + grp * hg;
-  const int P = tile_pitch(D);
-  const int Dc = (D + 3) >> 2;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int ty = (warp >> 1) * 4 + (lane >> 3);  // 0..15
-  const int tx = (warp & 1) * 8 + (lane & 7);     // 0..15
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rb = warp & 3, hh = warp >> 2;
+  const int kr = 16 * rb;          // the warp's key rows
+  const int qc = 32 * hh;          // its query columns of the score tiles
+  const int dc = hh * (DP >> 1);   // its output columns
+  const float sl2 = scale * kLog2e;
 
+  // the fixed-size buffers first (constant addresses, no registers), then
+  // the tiles of pitch W
   extern __shared__ float4 smem4[];
-  constexpr int kSlots = ring_slots(NCH);
-  float* k_s = reinterpret_cast<float*>(smem4);  // kB x P
-  float* v_s = k_s + kB * P;                     // kB x P
-  float* q_s = v_s + kB * P;                     // kSlots of kB x P
-  float* do_s = q_s + kSlots * kB * P;           // kSlots of kB x P
-  float* ps = do_s + kSlots * kB * P;            // kB x kPP: P, then dS
-  float* lse_s = ps + kB * kPP;                  // 2 slots of kB
-  float* dl_s = lse_s + 2 * kB;                  // 2 slots of kB
+  float4* p_s = smem4;                          // P^T
+  float4* ds_s = kTwoBuf ? p_s + kFrags : p_s;  // dS^T
+  float* lse_s = reinterpret_cast<float*>(p_s + (kTwoBuf ? 2 : 1) * kFrags);
+  float* dl_s = lse_s + kB;
+  float* k_s = dl_s + kB;  // kB x W each
+  float* v_s = k_s + kB * W;
+  float* q_s = v_s + kB * W;
+  float* do_s = q_s + kB * W;
 
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
-  for (int half = 0; half < 2; ++half) {
+  for (int half = 0; half < (causal ? 2 : 1); ++half) {
     const int t = half ? nk - 1 - (int)blockIdx.x : (int)blockIdx.x;
     if (half && t <= (int)blockIdx.x) break;  // the middle tile of odd nk
     const int k0 = t * kB;
@@ -379,109 +486,114 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(
     const int nqt = (qe + kB - 1) / kB - qa;
     const int n = hg * nqt;
 
-    auto stage = [&](int u, int slot) {
+    auto stage = [&](int u) {
       const int h = h0 + u / nqt;
       const int q0 = (qa + u % nqt) * kB;
-      stage_tile(q + b * sq.b + h * sq.h, sq.s, q0, S, D, P, vec,
-                 q_s + slot * kB * P);
-      stage_tile(dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, D, P, vec,
-                 do_s + slot * kB * P);
+      stage_tile(q + b * sq.b + h * sq.h, sq.s, q0, S, D, DP, vec, q_s);
+      stage_tile(dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, D, DP, vec,
+                 do_s);
       const long long row = ((long long)b * H + h) * S;
-      stage_vec(lse + row, q0, S, lse_s + slot * kB);
-      stage_vec(delta + row, q0, S, dl_s + slot * kB);
+      stage_vec(lse + row, q0, S, lse_s);
+      stage_vec(delta + row, q0, S, dl_s);
     };
 
-    float dk_acc[4][4 * NCH], dv_acc[4][4 * NCH];
+    float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < 4 * NCH; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+      for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
     if (half) __syncthreads();  // the first tile is done with every buffer
-    stage_tile(kb, sk.s, k0, S, D, P, vec, k_s);
-    stage_tile(vb, sv.s, k0, S, D, P, vec, v_s);
-    stage(0, 0);
+    stage_tile(kb, sk.s, k0, S, D, DP, vec, k_s);
+    stage_tile(vb, sv.s, k0, S, D, DP, vec, v_s);
+    stage(0);
     cp_async_commit();
     for (int u = 0; u < n; ++u) {
-      const int slot = kSlots == 2 ? u & 1 : 0;
       cp_async_wait_all();
-      __syncthreads();  // step u's tiles are in; step u - 1 is done
-      if (kSlots == 2 && u + 1 < n) stage(u + 1, slot ^ 1);
-      cp_async_commit();
+      __syncthreads();  // step u's tiles are in
+      const int q0 = (qa + u % nqt) * kB;
+      const bool edge = tile_edge(q0, k0, S, causal, window);
       const int qt = qa + u % nqt;
-      const int q0 = qt * kB;
-      const float* qs = q_s + slot * kB * P;
-      const float* dos = do_s + slot * kB * P;
-      const float* lr = lse_s + slot * kB;
-      const float* dr = dl_s + slot * kB;
-
-      float s[4][4], dp[4][4];
-      scores<NCH <= 2 ? 2 : 1>(qs, dos, k_s, v_s, Dc, P, ty, tx, s, dp);
+      int tb, te;
+      key_tiles(qt, S, causal, window, &tb, &te);
+      // dS^T as the [key][query] tile (qt, t) of launch 4's input
+      float* dst = ds + ((((long long)b * H + h0 + u / nqt) * n_tiles_s +
+                          tiles_before(qt, S, causal, window) + t - tb)
+                         << 12);
+      // the score tiles in passes of JN n-tiles: two at NT = 4, where the
+      // registers of two blocks an SM leave no room for all four
+      constexpr int JN = NT <= 4 ? 2 : 4;
+      float s[JN][4], dp[JN][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
+      for (int pass = 0; pass < 4 / JN; ++pass) {
+        scores<JN>(k_s, v_s, q_s, do_s, W, DP, kr, qc + 8 * JN * pass, s, dp);
+        // P^T and dS^T: rows keys k0 + kr + g (+ 8), columns queries
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const float p = allowed(q0 + r, k0 + c, S, causal, window)
-                              ? expf(__fmul_rn(s[i][j], scale) - lr[r])
-                              : 0.f;
-          s[i][j] = p;
-          dp[i][j] = p * (dp[i][j] - dr[r]);
-          ps[r * kPP + c] = p;
+        for (int jj = 0; jj < JN; ++jj) {
+          const int j = JN * pass + jj;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = qc + 8 * j + 2 * tq + (e & 1);
+            float p = exp2f(fmaf(s[jj][e], sl2, -kLog2e * lse_s[col]));
+            float d = p * (dp[jj][e] - dl_s[col]);
+            if (edge) {
+              const int kj = k0 + kr + g + 8 * (e >> 1);
+              const int qi = q0 + col;
+              const bool ok = allowed(qi, kj, S, causal, window);
+              const bool one = ok && one_key(qi, S, causal, window);
+              p = ok ? (one ? 1.f : p) : 0.f;
+              d = ok && !one ? d : 0.f;
+            }
+            s[jj][e] = p;
+            dp[jj][e] = d;
+          }
+          put_frag(p_s, rb, 4 * hh + j, s[jj]);
+          if constexpr (kTwoBuf) put_frag(ds_s, rb, 4 * hh + j, dp[jj]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            *reinterpret_cast<float2*>(
+                dst + (kr + g + 8 * i) * kB + qc + 8 * j + 2 * tq) =
+                make_float2(dp[jj][2 * i], dp[jj][2 * i + 1]);
         }
       }
       __syncthreads();
-      update<NCH, kPP>(ps, dos, P, Dc, ty, tx, dv_acc);
-      __syncthreads();
-      // dS to smem for dK, and as the [key][query] tile (qt, t) of
-      // launch 4's input
-      int tb, te;
-      key_tiles(qt, S, causal, window, &tb, &te);
-      float* dst = ds + ((((long long)b * H + h0 + u / nqt) * n_tiles +
-                          tiles_before(qt, S, causal, window) + t - tb)
-                         << 12);
+      update<NT, true>(p_s, do_s, W, rb, dc, nt, dv_acc);
+      if constexpr (!kTwoBuf) {  // JN == 4: dp holds the whole tile
+        __syncthreads();  // P read: the buffer takes dS
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ps[(ty + 16 * i) * kPP + tx + 16 * j] = dp[i][j];
-          dst[(tx + 16 * j) * kB + ty + 16 * i] = dp[i][j];
-        }
-      __syncthreads();
-      update<NCH, kPP>(ps, qs, P, Dc, ty, tx, dk_acc);
-      if (kSlots == 1 && u + 1 < n) {  // one slot: stage once it is read
+        for (int j = 0; j < JN; ++j) put_frag(ds_s, rb, 4 * hh + j, dp[j]);
         __syncthreads();
-        stage(u + 1, 0);
+      }
+      update<NT, false>(ds_s, q_s, W, rb, dc, nt, dk_acc);
+      if (u + 1 < n) {
+        __syncthreads();  // the slot is read: stage the next step
+        stage(u + 1);
         cp_async_commit();
       }
     }
 
-    // keys k0 + 4 ty + i, columns 4 (tx + 16 n) + e
+    // keys k0 + kr + g (+ 8), columns dc + 8 j + 2 tq (+ 1)
     const long long part_n = (long long)B * KV * S * D;
     float* pk = part + (((long long)grp * B + b) * KV + kvh) * S * D;
     float* pv = pk + groups * part_n;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + 4 * ty + i;
-      if (kj >= S) continue;
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) continue;
 #pragma unroll
-      for (int nn = 0; nn < NCH; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int d = 4 * (tx + 16 * nn) + e;
-          if (d >= D) continue;
-          const float gk = dk_acc[i][4 * nn + e];
-          const float gv = dv_acc[i][4 * nn + e];
-          if (groups == 1) {
-            dk[b * sdk.b + kvh * sdk.h + kj * sdk.s + d] =
-                from_f32<T>(gk * scale);
-            dv[b * sdv.b + kvh * sdv.h + kj * sdv.s + d] = from_f32<T>(gv);
-          } else {
-            pk[(long long)kj * D + d] = gk;
-            pv[(long long)kj * D + d] = gv;
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + kr + g + 8 * (e >> 1);
+        const int d = dc + 8 * j + 2 * tq + (e & 1);
+        if (kj >= S || d >= D) continue;
+        if (groups == 1) {
+          dk[b * sdk.b + kvh * sdk.h + kj * sdk.s + d] =
+              from_f32<T>(dk_acc[j][e] * scale);
+          dv[b * sdv.b + kvh * sdv.h + kj * sdv.s + d] =
+              from_f32<T>(dv_acc[j][e]);
+        } else {
+          pk[(long long)kj * D + d] = dk_acc[j][e];
+          pv[(long long)kj * D + d] = dv_acc[j][e];
         }
+      }
     }
   }
 }
@@ -514,27 +626,29 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_sum_kernel(
 // 4. dQ = dS K per (b, h, query tile), from launch 2's dS tiles, the
 //    longest query tiles first
 // ---------------------------------------------------------------------------
-template <typename T, int NCH>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
-    const float* __restrict__ ds, const T* __restrict__ k,
-    T* __restrict__ dq, Strides sk, Strides sdq, int H, int KV, int S, int D,
-    int causal, int window, float scale, int vec) {
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_kernel(const float* __restrict__ ds, const T* __restrict__ k,
+                        T* __restrict__ dq, Strides sk, Strides sdq, int H,
+                        int KV, int S, int D, int causal, int window,
+                        float scale, int vec) {
+  const int DP = padded<NT>(D), W = DP + 4, nt = DP / 16;
   const int nq = (S + kB - 1) / kB;
   const int qt = nq - 1 - (int)blockIdx.x;
   const int q0 = qt * kB;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int P = tile_pitch(D);
-  const int Dc = (D + 3) >> 2;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int ty = (warp >> 1) * 4 + (lane >> 3);
-  const int tx = (warp & 1) * 8 + (lane & 7);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rb = warp & 3, hh = warp >> 2;
+  const int qr = 16 * rb;         // the warp's query rows
+  const int dc = hh * (DP >> 1);  // its output columns
 
+  // two slots of (dS^T [key][query] of pitch kDP, K tile of pitch W)
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // 2 slots of kB x P
-  float* d_s = k_s + 2 * kB * P;                 // 2 slots of kB x kB
+  float* base = reinterpret_cast<float*>(smem4);
+  const int slot_floats = kB * kDP + kB * W;
 
   int tb, te;
   key_tiles(qt, S, causal, window, &tb, &te);
@@ -545,16 +659,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
             << 12);
   const T* kb = k + b * sk.b + kvh * sk.h;
   auto stage = [&](int u, int slot) {
-    stage_tile(kb, sk.s, (tb + u) * kB, S, D, P, vec, k_s + slot * kB * P);
+    float* d_s = base + slot * slot_floats;
     const float* src = dsb + ((long long)u << 12);
-    for (int e = threadIdx.x; e < kB * kB / 4; e += kThreads)
-      cp_async16(d_s + slot * kB * kB + 4 * e, src + 4 * e, 16);
+    for (int e = threadIdx.x; e < kB * kB / 4; e += kThreads) {
+      const int r = e >> 4, c = e & 15;
+      cp_async16(d_s + r * kDP + 4 * c, src + 4 * e, 16);
+    }
+    stage_tile(kb, sk.s, (tb + u) * kB, S, D, DP, vec, d_s + kB * kDP);
   };
-  float acc[4][4 * NCH];
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int c = 0; c < 4 * NCH; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   stage(0, 0);
   cp_async_commit();
@@ -564,34 +681,48 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
     __syncthreads();  // step u's tiles are in; step u - 1 is done
     if (u + 1 < n) stage(u + 1, slot ^ 1);
     cp_async_commit();
-    update<NCH, kB>(d_s + slot * kB * kB, k_s + slot * kB * P, P, Dc, ty,
-                    tx, acc);
+    const float* d_s = base + slot * slot_floats;
+    const float* k_s = d_s + kB * kDP;
+#pragma unroll 1
+    for (int ks = 0; ks < 8; ++ks) {
+      // A = dS (queries x keys) read from dS^T, k in the permuted order
+      const float* pa = d_s + (8 * ks + 2 * tq) * kDP + qr + g;
+      const Tf32 a[4] = {tf32_split(pa[0]), tf32_split(pa[8]),
+                         tf32_split(pa[kDP]), tf32_split(pa[kDP + 8])};
+      const float* p = frag_bp_ptr(k_s, W, 8 * ks, dc);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+          const Tf32 bk[2] = {tf32_split(p[8 * j]), tf32_split(p[W + 8 * j])};
+          mma_3xtf32(acc[j], a, bk);
+        }
+      }
+    }
   }
 
   T* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    if (qi >= S) continue;
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) continue;
 #pragma unroll
-    for (int nn = 0; nn < NCH; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * (tx + 16 * nn) + e;
-        if (d < D)
-          dqb[(long long)qi * sdq.s + d] =
-              from_f32<T>(acc[i][4 * nn + e] * scale);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int qi = q0 + qr + g + 8 * (e >> 1);
+      const int d = dc + 8 * j + 2 * tq + (e & 1);
+      if (qi < S && d < D)
+        dqb[(long long)qi * sdq.s + d] = from_f32<T>(acc[j][e] * scale);
+    }
   }
 }
 
-size_t dkdv_smem_bytes(int D, int slots) {
-  return sizeof(float) * ((size_t)(2 + 2 * slots) * kB * tile_pitch(D) +
-                          (size_t)kB * kPP + 4 * kB);
+// shared memory of the product launches: four staged tiles and the
+// score buffers (plus launch 2's lse and delta)
+size_t dkdv_smem_bytes(int D, bool two_buf) {
+  return sizeof(float) * ((size_t)4 * kB * tile_pitch(D) +
+                          (two_buf ? 2 : 1) * kB * kB + 2 * kB);
 }
 
 size_t dq_smem_bytes(int D) {
-  return sizeof(float) * 2 * kB * ((size_t)tile_pitch(D) + kB);
+  return sizeof(float) * 2 * ((size_t)kB * kDP + kB * tile_pitch(D));
 }
 
 int sm_count() {
@@ -603,14 +734,20 @@ int sm_count() {
   return n;
 }
 
+// launch 2's blocks along the keys: a key tile each, or a causal pair
+int key_blocks(int S, int causal) {
+  const int nk = (S + kB - 1) / kB;
+  return causal ? (nk + 1) / 2 : nk;
+}
+
 // The query-head groups of launch 2: the fewest (a divisor of G) that
 // give at least two blocks an SM.
-int head_groups(int B, int H, int KV, int S) {
+int head_groups(int B, int H, int KV, int S, int causal) {
   const int G = H / KV;
-  const long long pairs = ((S + kB - 1) / kB + 1) / 2;
   const long long want = 2LL * sm_count();
   for (int g = 1; g < G; ++g)
-    if (G % g == 0 && pairs * g * KV * B >= want) return g;
+    if (G % g == 0 && (long long)key_blocks(S, causal) * g * KV * B >= want)
+      return g;
   return G;
 }
 
@@ -624,7 +761,7 @@ bool rows_aligned(const void* p, const long long* st, int B, int heads,
   return true;
 }
 
-template <typename T, int NCH>
+template <typename T, int NT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* work, void* dq, void* dk, void* dv,
@@ -657,14 +794,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int groups = head_groups(B, H, KV, S);
-  const int nk = (S + kB - 1) / kB;
-  auto dkdv = flash_bwd_dkdv_kernel<T, NCH>;
-  const size_t b2 = dkdv_smem_bytes(D, ring_slots(NCH));
+  const int groups = head_groups(B, H, KV, S, causal);
+  auto dkdv = flash_bwd_dkdv_kernel<T, NT>;
+  const size_t b2 = dkdv_smem_bytes(D, NT <= 8);
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)b2);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((nk + 1) / 2, KV * groups, B), kThreads, b2, stream>>>(
+  dkdv<<<dim3(key_blocks(S, causal), KV * groups, B), kThreads, b2, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       part, ds, sq, sk, sv, sdo, sdk, sdv, B, H, KV, S, D, causal, window,
       scale, groups, vec);
@@ -682,17 +818,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
 
-  auto dqk = flash_bwd_dq_kernel<T, NCH>;
+  auto dqk = flash_bwd_dq_kernel<T, NT>;
   const size_t b4 = dq_smem_bytes(D);
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)b4);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3(nk, H, B), kThreads, b4, stream>>>(
+  dqk<<<dim3((S + kB - 1) / kB, H, B), kThreads, b4, stream>>>(
       ds, kt, static_cast<T*>(dq), sk, sdq, H, KV, S, D, causal, window,
       scale, vec);
   return cudaGetLastError();
 }
 
+// NT: the n-tiles of a warp's half of the output columns, D_pad / 16
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
@@ -700,13 +837,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const long long* st, int B, int H, int KV, int S, int D,
                      int causal, int window, cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 1>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H,
+    return launch<T, 4>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H,
                         KV, S, D, causal, window, stream);
   if (D <= 128)
-    return launch<T, 2>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H,
+    return launch<T, 8>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H,
                         KV, S, D, causal, window, stream);
-  return launch<T, 3>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H, KV,
-                      S, D, causal, window, stream);
+  return launch<T, 12>(q, k, v, o, dout, lse, work, dq, dk, dv, st, B, H,
+                       KV, S, D, causal, window, stream);
 }
 
 }  // namespace
@@ -722,7 +859,7 @@ extern "C" long long flash_attention_bwd_workspace(int B, int H, int KV,
   const long long rows = (long long)B * H * S;
   const long long tiles =
       tiles_before((S + kB - 1) / kB, S, causal, window);
-  const int groups = head_groups(B, H, KV, S);
+  const int groups = head_groups(B, H, KV, S, causal);
   return ((long long)B * H * tiles << 12) + rows +
          (groups > 1 ? 2LL * groups * B * KV * S * D : 0);
 }

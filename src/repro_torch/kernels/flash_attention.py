@@ -7,14 +7,14 @@ of the JAX package's ``kernels/flash_attention.py``: bf16 (the recompute)
 runs on the tensor cores (wgmma, fed by TMA), f32 (the train step, TF32
 off) on the CUDA cores.  The backward kernel is
 ``csrc/flash_attention_bwd.cu`` (the JAX package has none: it trains
-through XLA), on the CUDA cores in full f32 for both types, with exact
-zeros in dq and dk on rows that see one key.  :class:`FlashAttention`
-ties the two into autograd.
+through XLA), f32 products on the tensor cores as 3xTF32 for both types,
+with exact zeros in dq and dk on rows that see one key.
+:class:`FlashAttention` ties the two into autograd.
 
 head_dim limits: the forward kernels take D <= 256 (:data:`MAX_HEAD_DIM`,
 wgmma's widest product), the backward D <= 192 (:data:`MAX_HEAD_DIM_BWD`:
-its dK/dV block holds K, V, Q and dO as 64-row f32 tiles, 215 KB of the
-SM's 227 KB at 192).  The zoo's widest is stablelm-12b's 160.  Past its
+its dK/dV block holds K, V, Q and dO as 64-row f32 tiles and a score
+buffer, 213 KB of the SM's 227 KB at 192).  The zoo's widest is stablelm-12b's 160.  Past its
 limit a wrapper raises; it never falls back to the plain version.
 
 Layouts:

@@ -158,7 +158,7 @@ class EmbodiedPPORunner(WorkflowRunner):
     def reset_stream(self) -> None:
         # recovery determinism: the rollout-round counter seeds each
         # round's randomness; a rebuilt run restarts it like a fresh
-        # runner
+        # runner (resume_trainer_checkpoint then advances it to `start`)
         self._rollout_round = 0
 
     # ------------------------------------------------------------------
@@ -210,6 +210,14 @@ class EmbodiedPPORunner(WorkflowRunner):
     def cycle_specs(self) -> Dict[str, CycleSpec]:
         return embodied_cycle_specs(horizon=self.rl.horizon,
                                     chunks=self.rl.cycle_chunks)
+
+    def resume_trainer_checkpoint(self) -> int:
+        start = super().resume_trainer_checkpoint()
+        # keep the act-path RNG stream aligned with the resumed
+        # iteration — rounds already consumed before the interruption
+        # must not be replayed
+        self._rollout_round = max(self._rollout_round, start)
+        return start
 
     def make_batch(self) -> Dict[str, np.ndarray]:
         # rollout_round feeds the act path's noise so each iteration draws

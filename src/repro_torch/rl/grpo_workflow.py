@@ -136,6 +136,13 @@ class GRPORunner(WorkflowRunner):
                          profile_batches=rl.profile_batches,
                          cluster=cluster, **kw)
 
+    def reset_stream(self) -> None:
+        # recovery determinism: a rebuilt run must see the same prompt
+        # sequence a fresh runner would
+        self.data = PromptDataset(self.rl.batch_size // self.rl.group_size,
+                                  prompt_len=self.rl.prompt_len,
+                                  seed=self.rl.seed)
+
     # ------------------------------------------------------------------
     # declarative surface
     # ------------------------------------------------------------------

@@ -23,10 +23,11 @@ Counterpart of the JAX package's ``rl/runner.py``.  Weight sync COPIES
 the trainer's params into each target's own tensors
 (``comm.resharding.timed_weight_sync``): the trainer updates its params
 in place, so a reference would change the targets' weights under them.
-Periodic checkpointing, resume and failure recovery need
-``train/checkpoint.py``, which is not ported yet (ROADMAP.md queue 1,
-item 6), so a runner given ``checkpoint_dir`` or ``fault_injector``
-raises.
+Checkpoints go through the port's ``train/checkpoint.py`` in the JAX
+package's layout (either package resumes from the other's).  Teardown
+drops every dead worker's tensors (and the engines' references to the
+weights) before a recovery rebuilds them, so the card never holds two
+runs' state.
 """
 from __future__ import annotations
 
@@ -42,14 +43,10 @@ from repro_torch.core.faults import HeartbeatMonitor
 from repro_torch.core.flowgraph import topological_sort
 from repro_torch.core.pipeline import assert_no_leaked_threads
 from repro_torch.core.profiler import CostModel, fit_tail_factor, measure_onoffload
+from repro_torch.core.worker import WorkerFailure
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
 from repro_torch.utils import logging as _log
-
-CHECKPOINT_UNPORTED = (
-    "checkpointing, resume and failure recovery need train/checkpoint.py, "
-    "which the port does not have yet (ROADMAP.md queue 1, item 6: "
-    "train/checkpoint.py)")
 
 
 class WorkflowRunner:
@@ -82,16 +79,36 @@ class WorkflowRunner:
                  cluster: Optional[Cluster] = None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0,
-                 fault_injector: Optional[Any] = None):
-        if checkpoint_dir or checkpoint_every or fault_injector is not None:
-            raise NotImplementedError(CHECKPOINT_UNPORTED)
+                 fault_injector: Optional[Any] = None,
+                 fault_tolerant: Optional[bool] = None,
+                 max_recoveries: int = 2):
         self.iterations = iterations
         self.batch_size = batch_size
         self.mode = mode
         self.profile_batches = tuple(profile_batches)
+        # periodic trainer-state checkpointing (train.checkpoint): save
+        # every `checkpoint_every` iterations into `checkpoint_dir` and
+        # auto-resume from it when run() starts
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        # failure injection + recovery (core.faults): the injector's kill
+        # switch is spliced into the task fns; `fault_tolerant` gates the
+        # run_loop's catch-and-recover (default: on exactly when an
+        # injector is present, so a genuine bug in a normal test run
+        # still raises instead of silently recovering in a loop)
+        self.fault_injector = fault_injector
+        self.fault_tolerant = (fault_tolerant if fault_tolerant is not None
+                               else fault_injector is not None)
+        self.max_recoveries = max_recoveries
+        self.recoveries = 0
+        self.recovery_log: List[WorkerFailure] = []
+        # seconds of the last recovery's steps (teardown, rebuild,
+        # profile, resume), for the card's report
+        self.recovery_seconds: Dict[str, float] = {}
         self.cluster = cluster or Cluster(num_nodes=1, devices_per_node=8)
         self.workers: Dict[str, Any] = self.build_workers()
-        self.task_fns: Dict[str, Callable] = self.build_task_fns()
+        self.task_fns: Dict[str, Callable] = self._arm_task_fns(
+            self.build_task_fns())
         self._graph: Optional[FlowGraph] = None
         # straggler observability: every task call beats the monitor
         # (via the executor), run_loop reads the interval percentiles.
@@ -105,6 +122,12 @@ class WorkflowRunner:
         # measured seconds, total bytes moved, number of syncs
         self.sync_stats: Dict[str, float] = {
             "seconds": 0.0, "bytes": 0.0, "syncs": 0}
+
+    def _arm_task_fns(self, task_fns: Dict[str, Callable]
+                      ) -> Dict[str, Callable]:
+        if self.fault_injector is not None:
+            return self.fault_injector.arm(task_fns)
+        return task_fns
 
     # ------------------------------------------------------------------
     # declarative surface
@@ -120,6 +143,14 @@ class WorkflowRunner:
 
     def make_batch(self) -> Dict[str, np.ndarray]:
         raise NotImplementedError
+
+    def reset_stream(self) -> None:
+        """Reset the data stream to its construction-time state.  Called
+        by :meth:`recover` so a recovered run replays EXACTLY the batch
+        sequence a fresh runner resumed from the same checkpoint would
+        see — the invariant the recovery-determinism tests assert.
+        Subclasses with a data source must override (rebuild the dataset
+        with the same seed, zero rollout-round counters, ...)."""
 
     def scheduler_config(self) -> SchedulerConfig:
         return SchedulerConfig(total_batch=self.batch_size)
@@ -238,6 +269,8 @@ class WorkflowRunner:
         tr = _trace.active()
         if tr is not None:
             tr.set_context(iteration=it)
+        if self.fault_injector is not None:
+            self.fault_injector.set_iteration(it)
         try:
             self._sync_weights()
             batch = self.make_batch()
@@ -254,17 +287,51 @@ class WorkflowRunner:
         return self._record_stats(it, wall, out)
 
     # ------------------------------------------------------------------
-    # teardown
+    # periodic trainer checkpointing + resume (train.checkpoint)
+    # ------------------------------------------------------------------
+    def _trainer_state(self) -> Dict[str, Any]:
+        return {"params": self.actor.get_state("params"),
+                "opt": self.actor.get_state("opt")}
+
+    def save_trainer_checkpoint(self, it: int) -> None:
+        from repro_torch.train.checkpoint import save_checkpoint
+        save_checkpoint(self.checkpoint_dir, self._trainer_state(),
+                        step=it + 1,
+                        metadata={"workflow": type(self).__name__})
+
+    def resume_trainer_checkpoint(self) -> int:
+        """Restore actor params + optimizer state from checkpoint_dir if
+        one exists; returns the iteration to resume from (0 = fresh)."""
+        from repro_torch.train.checkpoint import (
+            checkpoint_exists,
+            load_checkpoint,
+        )
+        if not self.checkpoint_dir or not checkpoint_exists(
+                self.checkpoint_dir):
+            return 0
+        tree, step, _ = load_checkpoint(self.checkpoint_dir,
+                                        self._trainer_state())
+        self.actor.set_state("params", tree["params"])
+        self.actor.set_state("opt", tree["opt"])
+        return step
+
+    # ------------------------------------------------------------------
+    # failure recovery (core.faults): detect -> teardown -> re-place ->
+    # resume from the last checkpoint
     # ------------------------------------------------------------------
     def teardown(self) -> None:
         """Release everything the run held: router registrations,
         cluster allocations (both construction-time owners and plan-
-        managed ones), the context switcher, and the failure latch.
-        After this the cluster looks exactly as it did before the runner
-        was constructed."""
+        managed ones), the context switcher, the failure latch, and the
+        workers' tensors (registered state, host copies and the engines'
+        weight references), so the card holds none of the dead run's
+        state.  After this the cluster looks exactly as it did before
+        the runner was constructed (minus any failed hosts)."""
         for name, w in self.workers.items():
             if hasattr(w, "shutdown"):
                 w.shutdown()
+            if hasattr(w, "release_state"):
+                w.release_state()
             self.cluster.free(name)
         self.controller.placement_manager.release_all()
         self.controller._switcher = None
@@ -273,8 +340,41 @@ class WorkflowRunner:
         self.plan = None
         self._graph = None
         # a wedged executor thread surviving teardown would silently
-        # leak into the next run — make it a typed error instead
+        # leak across recoveries — make it a typed error instead
         assert_no_leaked_threads()
+
+    def recover(self, verbose: bool = True) -> int:
+        """Re-establish the run after a WorkerFailure; returns the
+        iteration to resume from.
+
+        Recovery is DEFINED as a fresh runner resumed from the last
+        checkpoint: tear everything down, reset the data stream, rebuild
+        the workers on the surviving devices (``Cluster.allocate`` skips
+        dead hosts), re-profile, re-plan (``Controller.plan`` draws from
+        ``available_devices``), and restore trainer state.  Because each
+        step replays ``run()``'s own prologue, the recovered run is
+        bit-equivalent to the fresh-resume baseline by construction.
+        The seconds of each step land in :attr:`recovery_seconds`."""
+        t0 = time.perf_counter()
+        self.teardown()
+        self.workers = {}  # the dead run's workers go before the rebuild
+        t1 = time.perf_counter()
+        self.reset_stream()
+        self.workers = self.build_workers()
+        self.task_fns = self._arm_task_fns(self.build_task_fns())
+        t2 = time.perf_counter()
+        self.profile()
+        self.plan_execution()
+        t3 = time.perf_counter()
+        start = self.resume_trainer_checkpoint()
+        t4 = time.perf_counter()
+        self.recovery_seconds = {"teardown": t1 - t0, "rebuild": t2 - t1,
+                                 "profile": t3 - t2, "resume": t4 - t3}
+        if verbose:
+            print(f"recovered: re-placed on "
+                  f"{len(self.cluster.available_devices())} live device(s), "
+                  f"resuming at iteration {start}")
+        return start
 
     def _observe_iteration(self, it: int, verbose: bool) -> None:
         """Per-iteration observability: straggler warnings from the
@@ -290,6 +390,7 @@ class WorkflowRunner:
         if reg is not None:
             reg.gauge("faults/stragglers").set(len(suspects))
             reg.counter("runner/iterations").inc()
+            reg.gauge("runner/recoveries").set(self.recoveries)
             for name in self.workers:
                 p95 = self.heartbeat.interval_percentile(name, 95.0)
                 if p95 is not None:
@@ -301,14 +402,46 @@ class WorkflowRunner:
 
     def run_loop(self, verbose: bool = True) -> None:
         if self.plan is None:
-            # allow run_loop() as the single entry point
+            # allow run_loop() as the single entry point (recover() goes
+            # through the same profile -> plan path)
             self.profile()
             self.plan_execution()
-        for it in range(self.iterations):
-            st = self.run_iteration(it)
+        start = self.resume_trainer_checkpoint()
+        if start and verbose:
+            print(f"resumed trainer state from {self.checkpoint_dir} "
+                  f"at iteration {start}"
+                  + (" (nothing left to run)"
+                     if start >= self.iterations else ""))
+        it = start
+        while it < self.iterations:
+            try:
+                st = self.run_iteration(it)
+            except WorkerFailure as f:
+                if (not self.fault_tolerant
+                        or self.recoveries >= self.max_recoveries):
+                    raise
+                self.recoveries += 1
+                self.recovery_log.append(f)
+                reg = _metrics.active()
+                if reg is not None:
+                    reg.counter("faults/recoveries").inc()
+                tr = _trace.active()
+                if tr is not None:
+                    tr.instant("worker-failure", "fault", worker=f.worker,
+                               step=f.step, iteration=it)
+                if verbose:
+                    print(f"worker failure at iteration {it}: "
+                          f"{f.worker} (step {f.step}) — recovering "
+                          f"({self.recoveries}/{self.max_recoveries})")
+                it = self.recover(verbose)
+                continue
             self._observe_iteration(it, verbose)
             if verbose:
                 self.log_iteration(st)
+            if (self.checkpoint_dir and self.checkpoint_every
+                    and (it + 1) % self.checkpoint_every == 0):
+                self.save_trainer_checkpoint(it)
+            it += 1
 
     def run(self, verbose: bool = True) -> List[Any]:
         self.profile()

@@ -29,6 +29,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.worker import Worker
 from repro_torch.device import DeviceLike
 from repro_torch.models import init_model
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 from repro_torch.rl.advantage import broadcast_to_tokens, grpo_advantages
 from repro_torch.rl.env import EnvConfig, VecReachEnv
 from repro_torch.rl.reward import math_reward
@@ -63,9 +65,8 @@ class RolloutWorker(Worker):
     tags.  ``engine="static"`` keeps the fixed-shape
     :class:`~repro_torch.serve.engine.Engine`; an arch no layout covers
     (windowed dense attention, encoder-decoder, VLM) falls back to it
-    under ``"auto"`` with a warning.  (The JAX worker also records a
-    trace instant and an ``rollout/engine_fallback`` counter there; the
-    port's obs hooks are not wired into the workers yet.)
+    under ``"auto"`` with a warning, an ``engine-fallback`` trace instant
+    and a ``rollout/engine_fallback`` metric.
 
     Sampling seeds come from :attr:`seeds` (:func:`rollout_seeds` of
     ``seed + process_index``), one base seed a call; a caller may replace
@@ -102,12 +103,19 @@ class RolloutWorker(Worker):
             else:
                 engine = "static"
                 # loud fallback: workloads missing the fast path must
-                # show up in logs, not vanish
+                # show up in logs and flowtrace summaries, not vanish
                 warnings.warn(
                     f"RolloutWorker {name!r}: no paged cache layout "
                     f"covers arch {cfg.name!r} (kind={cfg.kind}, "
                     f"sliding_window={cfg.sliding_window}); falling "
                     f"back to the static engine", stacklevel=2)
+                tr = _trace.active()
+                if tr is not None:
+                    tr.instant("engine-fallback", "rollout",
+                               worker=name, arch=cfg.name, kind=cfg.kind)
+                    reg = _metrics.active()
+                    if reg is not None:
+                        reg.counter("rollout/engine_fallback").inc()
         assert engine in ("paged", "static"), engine
         self.engine_kind = engine
         if engine == "paged":
@@ -152,6 +160,15 @@ class RolloutWorker(Worker):
             # the offload frees nothing on the card
             self.engine.release_params()
         return moved
+
+    def release_state(self) -> None:
+        """Drop the weights and the engines (their caches and their
+        references to the weights) with the registered state."""
+        super().release_state()
+        if isinstance(self.engine, PagedEngine):
+            self.engine.release_params()
+        self.engine = None
+        self.__dict__.pop("_static_act_engine", None)
 
     # weight sync (paper §2.1): trainer -> rollout.  On the paged engine
     # this is NOT a barrier — the update is enqueued and applied at the

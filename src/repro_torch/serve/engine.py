@@ -20,12 +20,15 @@ correction.
 Both return per-token *behaviour logprobs* so the trainer can form
 importance ratios without a separate inference pass.
 
-Counterpart of the JAX package's ``serve/engine.py``, without its
-tracing and metrics hooks.
+Counterpart of the JAX package's ``serve/engine.py``, with its tracing
+and metrics hooks on the paged engine (the step span and page counters,
+``weight-swap``, ``preempt``, the COW and prefix counters); with no
+tracer or registry armed each costs one ``None`` check.
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -36,6 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.layers import NEG_INF
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 from repro_torch.serve import layouts as layouts_mod
 from repro_torch.serve.paging import (
     OutOfPages,
@@ -330,6 +335,13 @@ class PagedEngine:
         if self.prefix_cache is not None:
             self.prefix_cache.flush(self.allocator)
         self.layout.on_weight_swap()
+        tr = _trace.active()
+        if tr is not None:
+            tr.instant("weight-swap", "engine", version=version,
+                       skipped=skipped)
+            reg = _metrics.active()
+            if reg is not None:
+                reg.counter("engine/weight_swaps").inc(1 + skipped)
 
     # ------------------------------------------------------------------
     # request lifecycle
@@ -357,18 +369,37 @@ class PagedEngine:
         remaining prompt work is chunk-prefilled under the
         ``prefill_chunk`` token budget, and everyone at the sampling
         frontier decodes one token in the fixed-shape batch."""
+        tr = _trace.active()
+        reg = _metrics.active()
+        t_step = time.perf_counter() if tr is not None else 0.0
         self._apply_pending()  # before the check: update_weights() alone
         # is a valid way to deliver the initial weights
         assert self.params is not None, "engine weights not initialized"
         joined = self.scheduler.admit(weight_version=self.weight_version)
         for q in joined:
+            # layout-private admission work: slot reset / snapshot
+            # restore / exact-prefix-match reuse (state layouts)
             skipped = self.layout.on_admit(q)
             if skipped:
                 self.scheduler.stats.prefix_hit_tokens += skipped
+                if reg is not None:
+                    reg.counter("serve/prefix_hit_tokens").inc(skipped)
         self._perform_cow_copies()
         self._grow_pages_or_preempt()
         reqs = self.scheduler.active_requests()
+        if tr is not None:
+            util = (self.allocator.num_allocated
+                    / max(self.allocator.num_pages, 1))
+            tr.counter("engine/page_util", util)
+            if reg is not None:
+                reg.gauge("engine/page_util").set(util)
+                if self.prefix_cache is not None:
+                    reg.gauge("serve/radix_pages").set(
+                        self.prefix_cache.num_pages)
         if not reqs:
+            if tr is not None:
+                tr.add("engine-step", "engine", t_step, time.perf_counter(),
+                       advanced=0, prefill=0, decode=0, chunked=0)
             return 0
         budget = self.prefill_chunk
         chunked_tokens = 0
@@ -377,7 +408,9 @@ class PagedEngine:
         decode_reqs: List[Request] = []
         waiting: List[Request] = []
         for r in sorted(reqs, key=lambda q: q.rid):
-            self._fast_forward(r)
+            skipped = self._fast_forward(r)
+            if skipped and reg is not None:
+                reg.counter("serve/prefix_hit_tokens").inc(skipped)
             if self._waiting_on_writer(r):
                 # the shared page under our cursor is still being filled
                 # by its writer; wait instead of duplicating its prefill
@@ -450,9 +483,21 @@ class PagedEngine:
                         self.scheduler.finish(r, index_in_cache=idx)
         if deferred:
             self.scheduler.stats.chunk_deferred_tokens += deferred
+            if reg is not None:
+                reg.counter("serve/prefill_chunk_deferred").inc(deferred)
         self.decode_steps += 1
         self.scheduler.stats.steps += 1
-        return len(decode_reqs) + chunk_only
+        advanced = len(decode_reqs) + chunk_only
+        if tr is not None:
+            # num_cached already advanced: a slot still inside its prompt
+            # was a prefill (teacher-forced) step, the rest decoded
+            prefill = sum(1 for r in decode_reqs
+                          if r.num_cached < r.prompt_len)
+            tr.add("engine-step", "engine", t_step, time.perf_counter(),
+                   advanced=advanced, prefill=prefill,
+                   decode=len(decode_reqs) - prefill,
+                   chunked=chunked_tokens)
+        return advanced
 
     # ------------------------------------------------------------------
     # prefix sharing + chunked prefill plumbing
@@ -504,6 +549,9 @@ class PagedEngine:
             self.allocator.note_computed(dst, rows)
             self.allocator.free([src])  # release the admission pin
             r.pending_cow = None
+            reg = _metrics.active()
+            if reg is not None:
+                reg.counter("serve/cow_pages").inc()
 
     def _prefill_chunk_step(self, r: Request, grant: int) -> None:
         """Cache ``grant`` positions of request ``r`` starting at
@@ -564,6 +612,12 @@ class PagedEngine:
         state, then the scheduler requeues it at the head."""
         self.layout.on_preempt(victim)
         self.scheduler.preempt(victim)
+        tr = _trace.active()
+        if tr is not None:
+            tr.instant("preempt", "engine", rid=victim.rid)
+            reg = _metrics.active()
+            if reg is not None:
+                reg.counter("engine/preemptions").inc()
 
     def run(self) -> List[Request]:
         """Drive until the queue and the running set are both empty."""

@@ -1,7 +1,8 @@
 """Small utilities over param trees: nested dicts of tensors.
 
 Counterpart of the JAX package's ``utils/treeutil.py``, the part the
-optimizer and trainer use: ``global_norm``, with ``tree_map``,
+optimizer, trainer and checkpoints use: ``global_norm`` and
+``tree_paths``, with ``tree_map``,
 ``tree_leaves`` and ``tree_unflatten`` standing in for ``jax.tree_util``
 on dicts.  The runtime's state and messages hold more than dicts (an
 AdamW state is a NamedTuple; a payload may be a list or a tuple), so
@@ -41,6 +42,27 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor)."""
     return torch.sqrt(sum(x.float().square().sum()
                           for x in tree_leaves(tree)))
+
+
+def tree_paths(tree) -> Dict[str, Any]:
+    """Flatten a pytree into {'/a/b/c': leaf} using dict keys."""
+    flat = {}
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(f"{prefix}/{k}", v)
+        elif hasattr(node, "_fields"):  # NamedTuple
+            for f in node._fields:
+                rec(f"{prefix}/{f}", getattr(node, f))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                rec(f"{prefix}/{i}", v)
+        else:
+            flat[prefix] = node
+
+    rec("", tree)
+    return flat
 
 
 def _is_namedtuple(x: Any) -> bool:

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm as gmm
 from repro_torch.kernels import ops
@@ -442,6 +443,22 @@ def test_flash_attention_bwd_kernel_is_repeatable_bitwise(dev):
     b = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_flash_attention_bwd_kernel_is_repeatable_bitwise_bidirectional(dev):
+    """whisper-large-v3's encoder (bidirectional, one key tile a block):
+    the same bits on a second call, and the stored dS scratch as the C
+    entry sizes it."""
+    q, k, v, dout = _flash_inputs(10, 2, 20, 20, 1500, 64, torch.float32,
+                                  dev)
+    out, lse = fa.flash_attention_bhsd(q, k, v, causal=False)
+    a = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    b = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    floats = _build.library().flash_attention_bwd_workspace(2, 20, 20, 1500,
+                                                            64, 0, 0)
+    assert floats == 2 * 20 * 24 * 24 * 64 * 64 + 2 * 20 * 1500
 
 
 @pytest.mark.parametrize("how", ["offset", "stride"])

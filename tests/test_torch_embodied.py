@@ -476,7 +476,3 @@ def test_embodied_runner_learns_above_random():
     assert last > 0.2, last
 
 
-def test_embodied_runner_refuses_checkpointing_naming_item_6(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tiny_runner("collocated", checkpoint_dir=str(tmp_path / "ck"),
-                    checkpoint_every=1)

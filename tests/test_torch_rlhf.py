@@ -368,10 +368,3 @@ def test_rlhf_ppo_four_model_workflow():
         total_batch=64, device_quantum=8)).schedule(runner.graph(), 32, 64)
     assert np.isfinite(t) and s is not None
     runner.teardown()
-
-
-def test_rlhf_runner_refuses_checkpointing_naming_item_6():
-    _, tcfg, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        RLHFRunner(tcfg, PPOConfig(batch_size=8), device="cpu",
-                   checkpoint_dir="ckpt")

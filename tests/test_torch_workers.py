@@ -390,15 +390,3 @@ def test_sync_into_an_offloaded_target_replaces_its_host_copy():
     for a, t in zip(pytree_leaves(runner.actor.params()),
                     pytree_leaves(inf.get_state("params"))):
         assert torch.equal(a, t) and a.data_ptr() != t.data_ptr()
-
-
-def test_left_out_items_raise_naming_their_roadmap_item():
-    _, tcfg, _ = _setup("quickstart")
-    rl = GRPOConfig(batch_size=8, group_size=4, iterations=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        GRPORunner(tcfg, rl, device="cpu", checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        GRPORunner(tcfg, rl, device="cpu", fault_injector=object())
-    from repro_torch.core import Cluster, Controller
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Controller(Cluster(), strict=True)
