@@ -61,18 +61,19 @@ random weights:
                 (paged KV, or the state cache for SSM and hybrid): 16
                 requests, tokens/s, and the kernels' launch counters set
                 to 0 before the run and gated exactly after it;
-  6. greedy     the same requests twice at temperature 0: identical tokens
-                (the SSM and hybrid models on 4 of them, cut to 64
-                prompt tokens, with 16 new tokens: their prompts go
+  6. greedy     the same requests twice at temperature 0, 16 new tokens
+                each: identical tokens (the SSM and hybrid models on 4
+                of them, cut to 64 prompt tokens: their prompts go
                 through the decode batch a token a step);
      static     (yi-9b and granite-moe) the static ``Engine`` on 8 prompts
                 of 64 tokens with 32 new: tokens/s, launches gated exactly
                 (K2 once a round; granite's K5 a layer a decode step), and
                 its rollouts' recomputed logprobs against its own at the
                 paged engine's bars;
-  7. recompute  16 rollouts of 448 + 64 tokens from the engine, scored by
-                ``make_prefill_step`` at full depth: tokens/s (median of
-                five passes), flash and SSD-scan launches, and the
+  7. recompute  16 rollouts of 448 + 64 tokens from the engine (the SSM
+                and hybrid models' of 64 + 64, each repeated to 512),
+                scored by ``make_prefill_step`` at full depth: tokens/s
+                (median of five passes), flash and SSD-scan launches, and the
                 train-inference logprob mismatch, gated;
   8. train      the model at full width, depth cut where needed, f32 params
                 and AdamW: three GRPO steps of 4 x 1024 tokens in two
@@ -116,14 +117,25 @@ and last the runtime end to end:
                 equal, the forced realization recorded, launches per
                 iteration gated exactly (K3 per act call and train
                 forward, no K1 or K2);
- 12. recover    ``GRPORunner`` on yi-9b at full width cut to 2 layers,
+ 12. recover    ``GRPORunner`` on yi-9b at full width cut to 1 layer,
                 f32 + AdamW, a checkpoint every iteration: the rollout
                 killed at iteration 1 and the run recovered once, equal
                 to a fresh resume from a copy of the checkpoint (rewards
                 within rtol 1e-4, final params bit for bit), launches
                 per iteration exact, the dead run's state freed before
                 the rebuild; checkpoint save and load GB/s and the
-                recovery's seconds by step.
+                recovery's seconds by step;
+ 13. launch     flowlint pass 3 (``check_kernels``, ``check_rng``) clean
+                at the zoo's shapes, and each kernel's predicted launches
+                (K1-K7, K3's and K6's backward at a main-path shape) equal
+                to the profiler's records (grid, block, shared memory);
+                ``launch.train.run`` at world size 1 on nccl (yi-9b full
+                width, 2 layers, f32 + AdamW, 3 steps of 4 x 1024) equal
+                to ``make_train_step`` run directly, bit for bit; a
+                reduced yi-9b rollout worker bound cuda -> cpu -> cuda
+                with the tokens of an unmoved one and >= 90 % of its
+                engine's bytes freed off the card; the dry-run of yi-9b
+                x train_4k at (16, 16).
 
 After the phases one line a kernel gives its time against its bound.
 The line before the last is the card's ``nvidia-smi`` name and power
@@ -1630,22 +1642,38 @@ def serve(cfg, params, prompts, results: dict) -> None:
     del eng
 
 
+def lead_pad(n: int = 2) -> None:
+    """Launch ``n`` short spin kernels (``spin_kernel``) and wait: the
+    opening of a profile.  A process's profiles have been seen to lose
+    their first kernel record or two (on the card, after a ``cuobjdump``
+    of the kernel library): the spins take the loss."""
+    import torch
+
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def profiled(fn, reps: int = 1):
     """(kernel name, device s per call, launches per call) for every CUDA
-    kernel of ``reps`` calls of ``fn`` under ``torch.profiler``."""
+    kernel of ``reps`` calls of ``fn`` under ``torch.profiler``.  Two
+    spin kernels open the session and are left out: once the header has
+    run ``cuobjdump``, a session loses its first kernel record or two
+    (a profile of 20 launches read 19; of one, none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        lead_pad()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     return [(e.key, e.self_device_time_total / reps / 1e6, e.count / reps)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
 
 
 def log_breakdown(tag: str, what: str, wall: float, rows, kernels) -> None:
@@ -1724,15 +1752,15 @@ def breakdown(eng, prompts, kernels, steps: int = 8) -> None:
 
 
 def greedy_repeat(cfg, params, prompts) -> None:
-    """The requests twice at temperature 0: identical tokens.  On the
-    state layout (SSM, hybrid), whose prompts go through the decode batch
-    a token a step (four 918-step serves took ~220 s of host-bound wall),
-    4 of them cut to 64 prompt tokens with 16 new tokens each."""
+    """The requests twice at temperature 0, 16 new tokens each: identical
+    tokens.  On the state layout (SSM, hybrid), whose prompts go through
+    the decode batch a token a step (four 918-step serves took ~220 s of
+    host-bound wall), 4 of them cut to 64 prompt tokens."""
     import torch
 
-    new = 64
+    new = 16
     if cfg.ssm is not None:
-        prompts, new = [p[:64] for p in prompts[:4]], 16
+        prompts = [p[:64] for p in prompts[:4]]
     runs = []
     for _ in range(2):
         eng = serve_once(cfg, params, prompts, temperature=0.0, top_k=0,
@@ -1814,16 +1842,22 @@ def moe_recompute_report(params, batch, prefill):
 
 
 ROLLOUTS = (16, 448, 64)  # requests, prompt tokens, new tokens
+# An SSM engine steps each prompt through its decode batch a token at a
+# time (512 host-bound steps for a 448-token prompt): its recompute's
+# rollouts take 64-token prompts instead.
+SSM_ROLLOUT_PROMPT = 64
 
 
-def rollouts(cfg, params, dtype):
-    """The recompute's input: 16 engine rollouts of 448 + 64 tokens."""
+def rollouts(cfg, params, dtype, prompt: int = ROLLOUTS[1]):
+    """The recompute's input: 16 engine rollouts of ``prompt`` + 64
+    tokens."""
     import numpy as np
     import torch
 
     from repro_torch.serve import PagedEngine
 
-    B, P, N = ROLLOUTS
+    B, _, N = ROLLOUTS
+    P = prompt
     prompts = np.random.default_rng(SEED + 3).integers(3, cfg.vocab_size,
                                                        (B, P))
     eng = PagedEngine(cfg, max_batch=B, page_size=16, prefill_chunk=512,
@@ -1901,7 +1935,10 @@ def recompute(cfg, params, results: dict, passes: int = 5) -> None:
     (448-token prompts + 64 new tokens, S = 512) and ``make_prefill_step``
     scores them at full depth in bf16: one warm-up pass, then ``passes``
     timed passes, each with one K3 launch per attention layer and one K6
-    launch per SSM layer; the median is reported."""
+    launch per SSM layer; the median is reported.  An SSM model's
+    rollouts have 64-token prompts (``SSM_ROLLOUT_PROMPT``): each is
+    repeated to S = 512 for the timed passes, whose first 128 positions
+    (the model is causal) score the rollout itself."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1909,17 +1946,20 @@ def recompute(cfg, params, results: dict, passes: int = 5) -> None:
     from repro_torch.train import make_prefill_step
 
     B, P, N = ROLLOUTS
+    want3, want6 = kernel_layers(cfg)
+    p = SSM_ROLLOUT_PROMPT if want6 else P
     t0 = time.perf_counter()
-    res = rollouts(cfg, params, torch.bfloat16)
+    res = rollouts(cfg, params, torch.bfloat16, prompt=p)
     gen_s = time.perf_counter() - t0
     tokens = res.tokens.cuda()
+    assert tokens.shape == (B, p + N)
+    tokens = tokens.repeat(1, (P + N) // (p + N))
     assert tokens.shape == (B, P + N)
     prefill = make_prefill_step(cfg)
     batch = {"tokens": tokens}
     prefill(params, batch)  # warm-up at the timed shape
     torch.cuda.synchronize()
     walls, k3, k6 = [], 0, 0
-    want3, want6 = kernel_layers(cfg)
     for _ in range(passes):
         fa.flash_attention_bhsd.launches = 0
         ssd.ssd_scan_bhcsp.launches = 0
@@ -1933,7 +1973,7 @@ def recompute(cfg, params, results: dict, passes: int = 5) -> None:
     wall = statistics.median(walls)
     assert lp.shape == (B, P + N)
     assert torch.isfinite(lp).all(), "recompute: non-finite logprobs"
-    gap = (lp[:, P:].cpu() - res.logprobs[:, P:]).abs()
+    gap = (lp[:, p:p + N].cpu() - res.logprobs[:, p:]).abs()
     mean_gap, max_gap = gap.mean().item(), gap.max().item()
     mean_tol, max_tol = MISMATCH_TOL[cfg.name]
     assert mean_gap <= mean_tol, (
@@ -1956,7 +1996,9 @@ def recompute(cfg, params, results: dict, passes: int = 5) -> None:
                  f"{paths.max():.4g}; engine vs recompute median|diff|="
                  f"{gap.median():.4g}")
     log(f"recompute: {cfg.name} full width ({cfg.num_layers} layers, bf16) "
-        f"{B} x {P + N} tokens ({B} rollouts generated in {gen_s:.2f} s) "
+        f"{B} x {P + N} tokens ({B} rollouts of {p} + {N} tokens "
+        f"generated in {gen_s:.2f} s"
+        + (f", each repeated to {P + N}" if p != P else "") + ") "
         f"scored in {wall * 1e3:.1f} ms (median of {passes} passes: "
         + ", ".join(f"{w * 1e3:.1f}" for w in walls)
         + f" ms) = {B * (P + N) / wall:.0f} tok/s; flash_attention_bhsd "
@@ -2900,12 +2942,12 @@ def embodied(results: dict) -> None:
         results[key]["launches"] += n
 
 
-RECOVER_LAYERS = 2  # of yi-9b's 48: three runners' state and checkpoints
+RECOVER_LAYERS = 1  # of yi-9b's 48: three runners' state and checkpoints
 
 
 def recover(results: dict) -> None:
     """Kill-and-recover on the card: ``GRPORunner`` on yi-9b at full
-    width cut to 2 layers, f32 + AdamW, collocated (a plan that does not
+    width cut to 1 layer, f32 + AdamW, collocated (a plan that does not
     move with the profile's timings), a checkpoint after every iteration
     in a temporary directory.  A first runner takes one iteration and its
     checkpoint is copied; a second resumes from it for three with the
@@ -3084,6 +3126,467 @@ def recover(results: dict) -> None:
         results[key]["launches"] += n
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the lint, the launcher, the rebind and the dry-run
+# ---------------------------------------------------------------------------
+def launch_ident(name: str) -> str:
+    """``flash_fwd_kernel`` from a demangled or Itanium-mangled kernel
+    name (the first identifier ending in ``_kernel``)."""
+    short = kernel_name(name)
+    if short != name:
+        return short.split("<")[0]
+    m = re.search(r"([A-Za-z_]\w*_kernel)\b", name)
+    return m.group(1) if m else name
+
+
+def static_smem(ptxas_log: str) -> dict:
+    """Each kernel's static shared memory, from a ``-Xptxas -v`` build
+    log: {kernel identifier: the byte counts of its instances}."""
+    out: dict = {}
+    name = ""
+    for line in ptxas_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$.]+)'?", line)
+        if m:
+            name = launch_ident(m.group(1))
+        elif "Used" in line and "registers" in line and name:
+            s = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, set()).add(int(s.group(1)) if s else 0)
+    return out
+
+
+def traced_launches(fn) -> list:
+    """Run ``fn`` once under ``torch.profiler`` on the card and return the
+    kernel launches recorded, in order: name, grid, block and shared
+    memory (the dynamic and static together, as CUPTI reports it), after
+    :func:`lead_pad`'s.  The trace has no cluster dimensions."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead_pad()
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    return [{"name": e["name"], "grid": tuple(e["args"]["grid"]),
+             "block": tuple(e["args"]["block"]),
+             "smem": int(e["args"]["shared memory"])} for e in kernels]
+
+
+def dim3(t) -> tuple:
+    return tuple(t) + (1,) * (3 - len(t))
+
+
+def check_launch_records(invocations, records, static: dict) -> list:
+    """Mismatches between the invocations' launches and the profiler's
+    records of one call of their wrapper (other kernels in the records,
+    such as torch's own, are skipped): the same launches in order, each
+    with the predicted grid, block and dynamic shared memory (the record
+    minus one of the kernel's static amounts)."""
+    names = {inv.launch for inv in invocations}
+    ours = [r for r in records if launch_ident(r["name"]) in names]
+    if len(ours) != len(invocations):
+        return [f"{len(ours)} launches recorded "
+                f"({[launch_ident(r['name']) for r in ours]}), "
+                f"{len(invocations)} predicted "
+                f"({[inv.launch for inv in invocations]})"]
+    bad = []
+    for inv, r in zip(invocations, ours):
+        got = (launch_ident(r["name"]), r["grid"], r["block"])
+        want = (inv.launch, dim3(inv.grid), dim3(inv.block))
+        extra = r["smem"] - inv.smem
+        if got != want or extra not in static.get(inv.launch, {0}):
+            bad.append(f"{inv.subject}: recorded {got} smem {r['smem']}, "
+                       f"predicted {want} smem {inv.smem} + static "
+                       f"{sorted(static.get(inv.launch, {0}))}")
+    return bad
+
+
+def check_on_card(invocations, call, static: dict, tries: int = 3):
+    """:func:`check_launch_records` of one traced ``call``; (mismatches,
+    profiles taken).  A profile now and then comes back without some of
+    its kernel records (CUPTI drops them): one that holds fewer of the
+    predicted launches than predicted is taken again, ``tries`` times at
+    most.  A profile that holds them all is judged as it is."""
+    names = {inv.launch for inv in invocations}
+    for n in range(1, tries + 1):
+        records = traced_launches(call)
+        seen = sum(launch_ident(r["name"]) in names for r in records)
+        bad = check_launch_records(invocations, records, static)
+        if not bad or seen >= len(invocations):
+            return bad, n
+    return bad, tries
+
+
+def lint_cases():
+    """(tag, invocations, call) for K1-K7 and K3's and K6's backward at a
+    main-path shape each: the flowlint pass-3 invocations of the launch
+    and a call of its wrapper on the card."""
+    import torch
+
+    from repro_torch.analysis import kernel_checks as kc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, dtype=f32, grad=False):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            dtype).requires_grad_(grad)
+
+    cases = []
+    # K1: yi-9b's decode batch of 8 over 32-page tables, bf16 pool
+    H, KV, D = YI_HEADS
+    B, nb, page = 8, 32, 16
+    P = B * nb + 1
+    q, kp, vp = rnd(B, H, D, dtype=bf), rnd(P, page, KV, D, dtype=bf), \
+        rnd(P, page, KV, D, dtype=bf)
+    tables = torch.arange(1, P, device="cuda", dtype=torch.int32).reshape(
+        B, nb)
+    lens = torch.full((B,), nb * page - 5, device="cuda", dtype=torch.int32)
+    cases.append(("K1", [kc.paged_invocation(
+        "yi-decode", B=B, H=H, D=D, P=P, page=page, KV=KV, nb=nb,
+        max_context=nb * page)],
+        lambda: pa.paged_attention_bhd(q, kp, vp, tables, lens)))
+    # K2: the same batch over yi-9b's 64000 logits
+    logits = rnd(8, 64000)
+    cases.append(("K2", [kc.sampling_invocation("yi-decode", B=8, V=64000)],
+                  lambda: ops.fused_sample(logits, torch.zeros_like(logits),
+                                           temperature=0.0)))
+    # K3: the recompute's bf16 forward, the train step's f32 backward
+    qb, kb, vb = rnd(4, H, 512, D, dtype=bf), rnd(4, KV, 512, D, dtype=bf), \
+        rnd(4, KV, 512, D, dtype=bf)
+    cases.append(("K3", [kc.flash_invocation(
+        "yi-recompute", B=4, H=H, S=512, D=D, KV=KV)],
+        lambda: fa.flash_attention_bhsd(qb, kb, vb)))
+    S = 1024
+    qf, kf, vf = rnd(2, H, S, D), rnd(2, KV, S, D), rnd(2, KV, S, D)
+    out, lse = fa.flash_attention_bhsd(qf, kf, vf)
+    dout = rnd(2, H, S, D)
+    cases.append(("K3bwd", kc.flash_bwd_invocations(
+        "yi-train", B=2, H=H, S=S, D=D, KV=KV, sm_count=sms),
+        lambda: fa.flash_attention_bwd(qf, kf, vf, out, lse, dout)))
+    # K4, K5: granite-moe's experts, bf16 (prefill capacity, decode batch)
+    E, k, d, f = GRANITE_MOE
+    buf, w = rnd(E, 64, d, dtype=bf), rnd(E, d, f, dtype=bf)
+    cases.append(("K4", [kc.gmm_invocation("granite-prefill", E=E, C=64,
+                                           D=d, F=f)],
+                  lambda: ops.grouped_matmul(buf, w)))
+    T = 16
+    x = rnd(T, d, dtype=bf)
+    idx = torch.stack([torch.randperm(E, generator=torch.Generator()
+                                      .manual_seed(i))[:k]
+                       for i in range(T)]).cuda()
+    gates = torch.softmax(rnd(T, k), -1)
+    gw, uw, dw = rnd(E, d, f, dtype=bf), rnd(E, d, f, dtype=bf), \
+        rnd(E, f, d, dtype=bf)
+    cases.append(("K5", kc.moe_decode_invocation(
+        "granite-decode", T=T, E=E, d=d, f=f, k=k),
+        lambda: ops.moe_decode(x, idx, gates, gw, uw, dw)))
+    # K6: mamba2's recompute (bf16) and train step (f32, with backward)
+    cfg = get_config("mamba2-370m")
+    Hs, Ps, N = cfg.num_ssm_heads, cfg.ssm.head_dim, cfg.ssm.state_size
+    ch = cfg.ssm.chunk_size
+    for tag, dtype, L in (("K6", bf, 1024), ("K6bwd", f32, 1024)):
+        xs = rnd(2, L, Hs, Ps, dtype=dtype)
+        dt = torch.rand((2, L, Hs), generator=g, device="cuda") * 0.1
+        A = -torch.rand((Hs,), generator=g, device="cuda")
+        Bm, Cm = rnd(2, L, N, dtype=dtype), rnd(2, L, N, dtype=dtype)
+        Dv = rnd(Hs)
+        name = "mamba2-recompute" if tag == "K6" else "mamba2-train"
+        inv = kc.ssd_invocation(name, B=2, L=L, H=Hs, P=Ps, N=N, chunk=ch,
+                                dtype="bfloat16" if dtype == bf else
+                                "float32", backward=tag == "K6bwd")
+        if tag == "K6":
+            cases.append((tag, [inv], lambda xs=xs, dt=dt, A=A, Bm=Bm,
+                          Cm=Cm, Dv=Dv: ops.ssd_scan(xs, dt, A, Bm, Cm, Dv,
+                                                     ch)))
+            continue
+        nc = L // ch
+        xk = xs.reshape(2, nc, ch, Hs, Ps).permute(0, 3, 1, 2, 4)
+        dtk = dt.reshape(2, nc, ch, Hs).permute(0, 3, 1, 2)
+        Bk, Ck = Bm.reshape(2, nc, ch, N), Cm.reshape(2, nc, ch, N)
+        Ab, Db = A.expand(2, Hs), Dv.expand(2, Hs)
+        y, states = ssd.ssd_scan_bhcsp(xk, dtk, Ab, Bk, Ck, Db,
+                                       save_states=True)
+        dy = torch.randn_like(y)
+        cases.append((tag, [inv], lambda a=(xk, dtk, Ab, Bk, Ck, Db, states,
+                                            dy): ssd.ssd_scan_bwd(*a)))
+    # K7: mamba2's decode batch of 16 slots
+    st = rnd(16, Hs, Ps, N)
+    xd, dtd = rnd(16, Hs, Ps, dtype=bf), torch.rand(
+        (16, Hs), generator=g, device="cuda") * 0.1
+    Bd, Cd = rnd(16, N, dtype=bf), rnd(16, N, dtype=bf)
+    A7, D7 = -torch.rand((Hs,), generator=g, device="cuda"), rnd(Hs)
+    cases.append(("K7", [kc.ssm_update_invocation("mamba2-decode", B=16,
+                                                  H=Hs, P=Ps, N=N)],
+                  lambda: ops.ssm_state_update(st, xd, dtd, A7, Bd, Cd, D7)))
+    return cases
+
+
+def check_lint(so) -> None:
+    """flowlint pass 3 at the zoo's shapes (no finding), then each
+    kernel's predicted launches against the profiler's records of one
+    call at a main-path shape: the same kernels in order, grid, block
+    and dynamic shared memory equal (the profiler's shared memory is the
+    dynamic plus the kernel's static, from the build log).  A profile
+    that lacks some of the kernel records is taken again (three at most,
+    as ``device_ms`` does).  The trace records no cluster dimensions: a
+    wrong cluster fails the launch."""
+    from repro_torch.analysis import check_kernels, check_rng
+    from repro_torch.analysis import kernel_checks as kc
+
+    t0 = time.perf_counter()
+    findings = check_kernels() + check_rng()
+    assert not findings, [str(f) for f in findings]
+    n_inv = len(kc.default_invocations())
+    log(f"launch: lint: {n_inv} invocations at the zoo's shapes and "
+        f"{len(kc.default_rng_specs())} noise keyings: no finding in "
+        f"{time.perf_counter() - t0:.2f} s")
+    static = static_smem(so.with_suffix(".log").read_text())
+    for tag, invs, call in lint_cases():
+        call()  # warm: the first call sets the shared-memory attribute
+        bad, tries = check_on_card(invs, call, static)
+        assert not bad, f"{tag}: {bad}"
+        if tries > 1:
+            log(f"launch: lint {tag}: {tries - 1} profile(s) lacked kernel "
+                "records; taken again")
+        log(f"launch: lint {tag}: " + "; ".join(
+            f"{inv.launch} grid {inv.grid} block {inv.block[0]} smem "
+            f"{inv.smem}" + (f" cluster {inv.cluster[0]}"
+                             if inv.cluster[0] > 1 else "")
+            for inv in invs) + ": as the profiler recorded")
+
+
+def lint_main() -> None:
+    """:func:`check_lint` as the body of a fresh process (see
+    :func:`check_lint_fresh`)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    so = _build.build()
+    _build.library()
+    check_lint(so)
+
+
+def check_lint_fresh() -> None:
+    """:func:`check_lint` in a fresh Python process on the card, which
+    loads the library this run built.  Late in a long run the profiler's
+    sessions lose kernel records: in this script's full runs most
+    profiles of the lint's calls came back with none of them (K6's three
+    in a row), while a process with no profile behind it (the phase run
+    alone, the card tests) recorded every launch the first time; the
+    drops began after the header's ``cuobjdump`` (see :func:`profiled`),
+    which a fresh process has not run."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke; chip_smoke.lint_main()")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    for line in out.stdout.splitlines():
+        if line.startswith("launch: "):
+            log(line)
+    assert out.returncode == 0, (
+        f"the lint's process failed:\n{out.stdout[-3000:]}"
+        f"\n{out.stderr[-3000:]}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+LAUNCH_LAYERS = 2  # of yi-9b's 48: f32 + AdamW, the launcher's run
+LAUNCH_RUN = ["--arch", "yi-9b", "--steps", "3", "--batch", "4", "--seq",
+              "1024"]
+
+
+def check_launcher() -> None:
+    """``launch.train.run`` at world size 1 on nccl (a (1, 1)
+    ``DeviceMesh``), yi-9b at full width cut to 2 layers, f32 + AdamW,
+    3 steps of 4 x 1024 tokens: its losses and its params after the steps
+    equal, bit for bit, the same steps of ``make_train_step`` run
+    directly; the process group is gone afterwards."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import init_model
+    from repro_torch.train import AdamWConfig, TrainHParams, make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.trainer import lm_loss
+    from repro_torch.utils.treeutil import tree_leaves
+
+    cfg = get_config("yi-9b").replace(num_layers=LAUNCH_LAYERS)
+    args = T.parse_args(LAUNCH_RUN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = T.run(cfg, args, addr=f"tcp://localhost:{free_port()}",
+                num_processes=1, process_id=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert not dist.is_initialized(), "the launcher left its process group"
+    assert run.mesh_dims == {"data": 1, "model": 1}, run.mesh_dims
+    assert run.mesh_kind == "DeviceMesh", run.mesh_kind
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        torch.float32, "cuda")
+    opt = init_adamw(params)
+    step = make_train_step(cfg, TrainHParams(
+        optimizer=AdamWConfig(lr=args.lr, warmup_steps=10, clip_norm=1.0),
+        remat=True), loss_fn=lm_loss)
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(args.steps):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (args.batch, args.seq))).cuda()
+        params, opt, m = step(params, opt, {"tokens": tok})
+        losses.append(float(m["loss"]))
+    got = [h["loss"] for h in run.history]
+    assert got == losses, (got, losses)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(run.params),
+                                                 tree_leaves(params)))
+    assert same, "the launcher's params differ from the direct steps'"
+    gb = sum(t.numel() * t.element_size()
+             for t in tree_leaves(params)) / 1e9
+    log(f"launch: launcher world 1 on nccl, DeviceMesh {run.mesh_dims}, "
+        f"yi-9b full width {LAUNCH_LAYERS} layers f32 ({gb:.2f} GB) + AdamW, "
+        f"{args.steps} steps of {args.batch} x {args.seq}: {wall:.2f} s "
+        f"with init; losses {got} equal the direct make_train_step's and "
+        "the params bit for bit")
+    del run, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_rebind() -> None:
+    """A reduced f32 yi-9b ``RolloutWorker`` on the paged engine at
+    temperature 0, bound cuda -> cpu -> cuda: every leg's tokens equal an
+    unmoved worker's, moving off the card frees at least 90 % of the
+    engine's bytes there (its cache and the weights), and the card legs
+    launch K1 once a layer a decode batch and K2 once a decode batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.rl.workers import RolloutWorker
+    from repro_torch.utils.treeutil import pytree_leaves
+
+    cfg = get_config("yi-9b").reduced()
+    prompts = np.random.default_rng(SEED).integers(
+        3, cfg.vocab_size, (4, 16)).astype(np.int32)
+
+    def worker(name):
+        w = RolloutWorker(name, cfg=cfg, max_new_tokens=8, temperature=0.0,
+                          devices=(0,), engine="paged", device="cuda")
+        w.update_weights(init_model(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            torch.float32, "cuda"))
+        return w
+
+    still, w = worker("rollout/still"), worker("rollout/moved")
+    want = [still.generate({"prompt_tokens": prompts})["tokens"]
+            for _ in range(3)]
+
+    def leg(tag: str, i: int):
+        eng = w.engine
+        b0 = eng.decode_batches
+        zero_launches()
+        out = w.generate({"prompt_tokens": prompts})["tokens"]
+        torch.cuda.synchronize()
+        batches = eng.decode_batches - b0
+        card = eng.device.type == "cuda"
+        gate_launches({"K1": cfg.num_layers * batches, "K2": batches}
+                      if card else {}, f"rebind {tag}")
+        assert np.array_equal(out, want[i]), f"rebind {tag}: tokens differ"
+        return batches
+
+    t0 = time.perf_counter()
+    n1 = leg("cuda", 0)
+    engine_bytes = sum(
+        x.numel() * x.element_size()
+        for x in pytree_leaves(w.engine.cache) + pytree_leaves(
+            w.get_state("params")))
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    w.bind_devices((0,), platform="cpu")
+    gc.collect()
+    freed = before - torch.cuda.memory_allocated()
+    assert w.engine.device.type == "cpu" and w.device.type == "cpu"
+    assert freed >= 0.9 * engine_bytes, (freed, engine_bytes)
+    leg("cpu", 1)
+    w.bind_devices((0,), platform="cuda")
+    assert w.engine.cache.k.is_cuda
+    n3 = leg("cuda again", 2)
+    log(f"launch: rebind cuda -> cpu -> cuda of a reduced f32 yi-9b "
+        f"rollout worker ({cfg.num_layers} layers): tokens equal the "
+        f"unmoved worker's on every leg; moving off the card freed "
+        f"{freed / 1e6:.2f} MB of the engine's {engine_bytes / 1e6:.2f} MB "
+        f"({100 * freed / engine_bytes:.1f} %); K1 {cfg.num_layers} x "
+        f"{n1} and {cfg.num_layers} x {n3}, K2 {n1} and {n3} on the card "
+        f"legs, exactly; {time.perf_counter() - t0:.2f} s. Moving between "
+        "two cards needs a second card: not run on one H100")
+    still.shutdown()
+    w.shutdown()
+
+
+def check_dryrun() -> None:
+    """The dry-run of yi-9b x train_4k on the (16, 16) production mesh,
+    on the meta device: the resident bytes a device and their fit, and
+    the bytes the plain ops of its forward move."""
+    from repro_torch.launch.dryrun import run_case
+
+    t0 = time.perf_counter()
+    r = run_case("yi-9b", "train_4k", save=False, verbose=False)
+    m = r["memory"]
+    assert m["fits_resident"] and m["resident_bytes"] > 0, m
+    assert r["bytes_moved"]["per_device_bytes"] > m["resident_bytes"], r
+    log(f"launch: dry-run yi-9b x train_4k x 16x16 ({r['chips']} cards) "
+        f"on the meta device: {m['resident_bytes'] / 1e9:.3f} GB resident "
+        f"a device (params {m['param_bytes'] / 1e9:.3f}, AdamW "
+        f"{m['opt_bytes'] / 1e9:.3f}, batch {m['batch_bytes'] / 1e9:.4f}; "
+        f"activations not counted) of {m['hbm_bytes'] / 1e9:.0f} GB: fits; "
+        f"counted FLOPs / 6ND {r['flops']['counted_over_model']:.3f}; "
+        f"the plain ops move "
+        f"{r['bytes_moved']['per_device_bytes'] / 1e9:.1f} GB a device; "
+        f"collectives {r['collectives']['total_bytes'] / 1e9:.2f} GB a "
+        f"step; dominant term {r['roofline']['dominant']}; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def launch() -> None:
+    """Phase 13: the kernel lint against the profiler (in a process of
+    its own), the launcher at world size 1, the engine's rebind and the
+    dry-run."""
+    t0 = time.perf_counter()
+    check_lint_fresh()
+    check_launcher()
+    check_rebind()
+    check_dryrun()
+    log(f"launch: phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3194,6 +3697,8 @@ def main() -> int:
     embodied(results)
     # checkpoints and kill-and-recover
     recover(results)
+    # the kernel lint, the launcher, the rebind and the dry-run
+    launch()
 
     kernels = [results[k] for k in ("paged_attention", "fused_sample",
                                     "flash_fwd", "flash_bwd",

@@ -9,18 +9,18 @@ runs:
   * Pass 1 (``plan_checks``)  — graph/plan invariants (P1xx/P2xx);
   * Pass 2 (``concurrency``)  — deadlock/livelock analysis over the
     channel topology (C1xx);
-  * Pass 3 (``kernel_checks``) — in the JAX package, Pallas kernel
-    shape/index-map lint at the config-zoo shapes plus RNG-determinism
-    (K1xx/R1xx).
+  * Pass 3 (``kernel_checks``) — CUDA launch lint of the kernel
+    wrappers at the config-zoo shapes plus RNG-determinism of the
+    sampling noise's keys (K1xx/R1xx).
 
-Counterpart of the JAX package's ``analysis`` with passes 1 and 2.  Pass
-3's port is a check of the CUDA wrappers' grids, not of Pallas
-BlockSpecs, and is not written yet (ROADMAP.md queue 1, item 11b):
-``analyze(kernels=True)`` raises.
+Counterpart of the JAX package's ``analysis``; its Pass 3 checks the
+CUDA launches (grid, block, shared memory, cluster, tiles) where JAX's
+checks Pallas BlockSpecs.
 
-Entry points: :func:`analyze` (library), ``Controller(strict=True)``
-(reject bad plans before execution), and :class:`LockOrderRecorder`
-(runtime validation of Pass 2's model).
+Entry points: :func:`analyze` (library), ``python -m
+repro_torch.analysis`` (CLI), ``Controller(strict=True)`` (reject bad
+plans before execution), and :class:`LockOrderRecorder` (runtime
+validation of Pass 2's model).
 """
 from __future__ import annotations
 
@@ -43,6 +43,13 @@ from repro_torch.analysis.findings import (
     max_severity,
     severity_rank,
 )
+from repro_torch.analysis.kernel_checks import (
+    KernelInvocation,
+    RNGKeySpec,
+    check_invocation,
+    check_kernels,
+    check_rng,
+)
 from repro_torch.analysis.plan_checks import (
     check_cost_models,
     check_graph,
@@ -51,15 +58,12 @@ from repro_torch.analysis.plan_checks import (
 
 __all__ = [
     "ChannelDecl", "ChannelTopology", "Finding", "FlowLintError",
-    "KERNEL_PASS_UNPORTED", "LockOrderRecorder", "PortDecl", "SEVERITIES",
-    "analyze", "analyze_target", "build_topology", "check_cost_models",
-    "check_graph", "check_plan", "check_topology", "filter_findings",
-    "format_findings", "max_severity", "severity_rank",
+    "KernelInvocation", "LockOrderRecorder", "PortDecl", "RNGKeySpec",
+    "SEVERITIES", "analyze", "analyze_target", "build_topology",
+    "check_cost_models", "check_graph", "check_invocation",
+    "check_kernels", "check_plan", "check_rng", "check_topology",
+    "filter_findings", "format_findings", "max_severity", "severity_rank",
 ]
-
-KERNEL_PASS_UNPORTED = (
-    "flowlint pass 3 (kernel_checks: the kernels' launch-shape lint and "
-    "check_rng) is not ported yet (ROADMAP.md queue 1, item 11b)")
 
 
 def analyze(graph: Optional[Any] = None, plan: Optional[Any] = None,
@@ -73,11 +77,10 @@ def analyze(graph: Optional[Any] = None, plan: Optional[Any] = None,
 
     Pass whatever exists: a graph alone gets Pass 1's graph checks; a
     plan adds the plan invariants and Pass 2's concurrency analysis (the
-    channel topology is derived from the plan).  ``kernels=True`` (Pass
-    3) raises: see :data:`KERNEL_PASS_UNPORTED`.
+    channel topology is derived from the plan); ``kernels=True`` adds
+    Pass 3's config-zoo launch sweep and the RNG-determinism check
+    (artifact-independent, so opt-in).
     """
-    if kernels:
-        raise NotImplementedError(KERNEL_PASS_UNPORTED)
     findings: List[Finding] = []
     if graph is not None:
         findings.extend(check_graph(graph, cycle_specs))
@@ -89,6 +92,9 @@ def analyze(graph: Optional[Any] = None, plan: Optional[Any] = None,
                                    sync_edges=sync_edges))
         topo = build_topology(graph, plan, cycle_specs)
         findings.extend(check_topology(topo))
+    if kernels:
+        findings.extend(check_kernels())
+        findings.extend(check_rng())
     return filter_findings(findings, min_severity)
 
 

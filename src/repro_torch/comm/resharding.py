@@ -12,9 +12,10 @@ context-switch cost).
 
 Counterpart of the JAX package's ``comm/resharding.py``, whose sync is a
 pytree ``device_put`` onto the destination's shardings (JAX arrays are
-immutable, so it may pass references).  One card has no shardings to
-change, so ``reshard`` and ``reshard_params`` have no counterpart until
-the port spans devices (ROADMAP.md queue 1, item 12).
+immutable, so it may pass references).  :func:`reshard` and
+:func:`reshard_params` move a tree between layouts on a ``DeviceMesh``
+(DTensor ``redistribute``: torch emits the collectives), the data plane
+when trainer and rollout hold the weights laid out differently.
 """
 from __future__ import annotations
 
@@ -26,7 +27,39 @@ import torch
 from repro_torch.comm.primitives import leaf_nbytes
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
-from repro_torch.utils.treeutil import pytree_flatten, pytree_map
+from repro_torch.utils.sharding import NamedSharding, map_specs
+from repro_torch.utils.treeutil import (
+    pytree_flatten,
+    pytree_map,
+    pytree_unflatten,
+)
+
+
+def reshard(tree: Any, shardings: Any) -> Any:
+    """Lay every leaf of ``tree`` out as its destination
+    :class:`~repro_torch.utils.sharding.NamedSharding` says: a DTensor
+    is redistributed, a plain tensor (the same full value on every rank)
+    distributed from it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    leaves, treedef = pytree_flatten(tree)
+    dst = pytree_flatten(shardings)[0]
+    if len(dst) != len(leaves):
+        raise ValueError(f"{len(dst)} shardings for {len(leaves)} leaves")
+    out = []
+    for x, s in zip(leaves, dst):
+        if isinstance(x, DTensor):
+            out.append(x.redistribute(s.mesh, s.placements))
+        else:
+            out.append(distribute_tensor(x, s.mesh, s.placements))
+    return pytree_unflatten(treedef, out)
+
+
+def reshard_params(params: Any, mesh: Any, specs: Any) -> Any:
+    """:func:`reshard` onto ``specs`` (a spec tree from
+    ``train.sharding_rules``) on ``mesh``."""
+    return reshard(params, map_specs(lambda sp: NamedSharding(mesh, sp),
+                                     specs))
 
 
 def transfer_stats(tree: Any) -> Dict[str, float]:

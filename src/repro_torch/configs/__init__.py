@@ -36,6 +36,8 @@ def _load_all() -> None:
 
 from repro_torch.configs.base import (  # noqa: E402,F401
     ModelConfig,
+    ShapeConfig,
     get_config,
     list_archs,
 )
+from repro_torch.configs.shapes import SHAPES, get_shape, list_shapes  # noqa: E402,F401

@@ -106,20 +106,12 @@ class Worker:
                 ) -> Optional[Tuple[torch.device, ...]]:
         """The distinct local devices backing the cluster device slice
         ``devices``, in slice order; None for an empty slice.  Cluster
-        ids fold onto the local cards round-robin (``id % device_count``);
-        on the CPU every id is the CPU."""
-        if not devices:
-            return None
-        base = resolve_device(self.platform)
-        if base.type != "cuda":
-            return (base,)
-        count = torch.cuda.device_count()
-        picked: List[torch.device] = []
-        for g in devices:
-            d = torch.device("cuda", int(g) % count)
-            if d not in picked:
-                picked.append(d)
-        return tuple(picked)
+        ids fold onto the local cards round-robin (``id % device_count``,
+        ``launch.mesh.mesh_for_devices``); on the CPU every id is the
+        CPU."""
+        from repro_torch.launch.mesh import mesh_for_devices
+
+        return mesh_for_devices(devices, device=self.platform)
 
     @property
     def device_mesh(self) -> Optional[Tuple[torch.device, ...]]:
@@ -146,21 +138,33 @@ class Worker:
             return own
         return empty_like_tree(tree, device)
 
-    def bind_devices(self, devices: Sequence[int]) -> None:
+    def bind_devices(self, devices: Sequence[int], *,
+                     platform: DeviceLike = None) -> None:
         """Rebind this worker to a new device slice (plan-driven
         placement).  Refreshes the router registration (placement-aware
         backend choice must see the new devices) and moves resident state
-        to the slice's device when that changes."""
+        to the slice's device when that changes.  ``platform`` moves the
+        worker to another platform too (the card or the CPU), onto which
+        the slice's ids then fold.  A slice that resolves to no device
+        (a card on a host without one) raises and changes nothing."""
         devices = tuple(devices)
-        if devices == self.devices:
+        if devices == self.devices and platform is None:
             return
         with self._state_lock:
             resident = [k for k, tree in self._state.items()
                         if tree is not None and k not in self._offloaded]
             old = self.device if resident else None
+            before = (self.devices, self.platform)
             self.devices = devices
+            if platform is not None:
+                self.platform = platform
+            try:
+                new = self.device
+            except Exception:
+                self.devices, self.platform = before
+                raise
             self.router.register(self.name, devices=list(devices))
-            if not resident or self.device == old:
+            if not resident or new == old:
                 return
             for k in resident:
                 self._state[k] = self._place(self._state[k])

@@ -21,6 +21,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "plain PyTorch path on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{dev} asked for, but CUDA is not available")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

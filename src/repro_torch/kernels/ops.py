@@ -1,8 +1,9 @@
 """Dispatch from model layouts onto the kernels.
 
 A tensor on the card goes to the hand-written CUDA kernel; a tensor on
-the CPU goes to the kernel's plain PyTorch version.  There is no
-fallback: a failed launch raises.
+the CPU goes to the kernel's plain PyTorch version, and so does one on
+the meta device, which holds no data (the dry-run counts the plain
+versions' FLOPs there).  There is no fallback: a failed launch raises.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.kernels import ssm_update as _ssu
 def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel route for device {t.device}")
 

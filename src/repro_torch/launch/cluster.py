@@ -9,16 +9,17 @@ execute path runs against more than one host without real machines:
     ``available_devices`` and new allocations reject them) and be
     *restored*, which is what the fault-injection harness
     (``core.faults``) drives;
+  * :func:`maybe_init_distributed` — a ``torch.distributed`` process
+    group when a coordinator is configured (``REPRO_COORD_ADDR``), the
+    counterpart of JAX's ``maybe_init_jax_distributed``; a no-op
+    otherwise;
   * :func:`cluster_from_env` — topology from ``REPRO_DRYRUN_HOSTS`` /
     ``REPRO_DRYRUN_DEVICES``, so tests and benchmarks can parametrize
     shape instead of hardcoding one.
 
 Global device IDs stay flat (host h, local device j -> ``h*M + j``), so
 schedules, placements, and worker meshes are oblivious to host
-boundaries; only liveness carries host identity.  The JAX package's
-``maybe_init_jax_distributed`` has no counterpart yet: its port is the
-``torch.distributed`` start of the multi-device work (ROADMAP.md queue
-1, item 12).
+boundaries; only liveness carries host identity.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Set
 
 from repro_torch.core.placement import Cluster
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclass
@@ -76,6 +78,42 @@ class SimulatedCluster(Cluster):
 
     def restore_host(self, host: int) -> None:
         self._dead_hosts.discard(host)
+
+
+def maybe_init_distributed(addr: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           device: DeviceLike = None) -> bool:
+    """Initialize the default ``torch.distributed`` process group when a
+    coordinator is configured; returns True when it came up.
+
+    Explicit arguments win over ``REPRO_COORD_ADDR`` (host:port, or a
+    full init method such as ``tcp://host:port`` or ``file:///path``),
+    ``REPRO_NUM_PROCESSES`` and ``REPRO_PROCESS_ID``.  The backend is
+    ``nccl`` on the card (``device``, the card by default, becomes this
+    process's current card) and ``gloo`` on the CPU.  Without a
+    coordinator (the common test case) this is a no-op and the process
+    runs alone.  It is the only code of the port that initializes a
+    process group, and it sets no environment variable.
+    """
+    addr = addr or os.environ.get("REPRO_COORD_ADDR")
+    if not addr:
+        return False
+    import torch
+    import torch.distributed as dist
+
+    n = int(num_processes if num_processes is not None
+            else os.environ.get("REPRO_NUM_PROCESSES", "1"))
+    rank = int(process_id if process_id is not None
+               else os.environ.get("REPRO_PROCESS_ID", "0"))
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=addr if "://" in addr else f"tcp://{addr}",
+        world_size=n, rank=rank)
+    return True
 
 
 def cluster_from_env(default_hosts: int = 1,

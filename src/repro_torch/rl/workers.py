@@ -43,6 +43,8 @@ from repro_torch.train.trainer import (
     make_prefill_step,
     make_train_step,
 )
+from repro_torch.utils.treeutil import pytree_flatten
+
 
 def rollout_seeds(seed: int) -> Iterator[int]:
     """Base seeds of a rollout worker's successive ``generate`` calls: a
@@ -141,17 +143,23 @@ class RolloutWorker(Worker):
                                                 ids, V, self.device))
         self.register_state("params", None)
 
-    def bind_devices(self, devices: Sequence[int]) -> None:
-        """Plan-driven rebinding; the engine's cache lives on one card,
-        so a slice that folds onto another card is refused (on one card
-        every slice folds onto it)."""
-        new = self.mesh_of(tuple(devices))
-        if new and new[0] != self.engine.device:
-            raise NotImplementedError(
-                f"moving {self.name}'s {self.engine_kind} engine from "
-                f"{self.engine.device} to {new[0]}: the port runs on one "
-                "card (ROADMAP.md queue 1, item 12: multi-device)")
-        super().bind_devices(devices)
+    def bind_devices(self, devices: Sequence[int], *,
+                     platform: DeviceLike = None) -> None:
+        """Plan-driven rebinding moves the ENGINE's device state too: the
+        page pool or state cache, its snapshots and the applied and
+        pending weights follow the worker onto its new slice's device,
+        and the old device gets their storage back.  The weights the
+        worker holds and the engine's applied ones stay one copy."""
+        before = pytree_flatten(self._state.get("params"))[0]
+        super().bind_devices(devices, platform=platform)
+        if self.engine is None or self.engine.device == self.device:
+            return
+        after = pytree_flatten(self._state.get("params"))[0]
+        memo = {id(a): b for a, b in zip(before, after)
+                if isinstance(a, torch.Tensor)}
+        self.engine.rebind_devices(self.device, memo)
+        # the hidden act engine is rebuilt on the new device when needed
+        self.__dict__.pop("_static_act_engine", None)
 
     def offload(self, keys: Optional[Sequence[str]] = None):
         moved = super().offload(keys)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from repro_torch.serve.paging import (
 )
 from repro_torch.serve.sampling import request_noise, sample_tokens_fused
 from repro_torch.serve.scheduler import RUNNING, ContinuousScheduler, Request
+from repro_torch.utils.treeutil import to_device
 
 
 class GenerationResult(NamedTuple):
@@ -98,6 +99,14 @@ class Engine:
         self.eos = eos_token
         self.pad = pad_token
         self.noise_fn = request_noise
+
+    def rebind_devices(self, device: DeviceLike,
+                       memo: Optional[Dict[int, torch.Tensor]] = None
+                       ) -> None:
+        """Run on ``device`` from now on: the static engine keeps no
+        device buffers between calls (each ``generate`` builds its
+        decode state), so nothing else moves."""
+        self.device = resolve_device(device)
 
     @torch.no_grad()
     def generate(self, params, prompt_tokens, prompt_lens=None,
@@ -306,6 +315,26 @@ class PagedEngine:
                     else self.weight_version
                 version = base + 1
             self._pending.append((version, params))
+
+    def rebind_devices(self, device: DeviceLike,
+                       memo: Optional[Dict[int, torch.Tensor]] = None
+                       ) -> None:
+        """Re-place the engine's device-resident state — the layout's
+        cache and snapshots, the applied params, pending updates — on
+        ``device`` and drop the old storage, so the old device gets it
+        back.  Called when the execution plan rebinds the rollout
+        worker's device slice: the cache must live where the weights
+        live.  ``memo`` (as ``to_device``'s) keeps the weights the worker
+        moved itself shared with the engine's."""
+        device = resolve_device(device)
+        memo = {} if memo is None else memo
+        with self._sync_lock:
+            self.layout.rebind(device, memo)
+            if self.params is not None:
+                self.params = to_device(self.params, device, memo)
+            self._pending = deque((v, to_device(p, device, memo))
+                                  for v, p in self._pending)
+            self.device = device
 
     def release_params(self) -> None:
         """Apply any pending update (so its version tag holds) and drop

@@ -49,6 +49,7 @@ from repro_torch.serve.paging import (
 )
 from repro_torch.serve.sampling import request_noise, sample_tokens_fused
 from repro_torch.serve.scheduler import KVPageCost, NullPageCost, Request
+from repro_torch.utils.treeutil import to_device
 
 
 class LayoutError(TypeError):
@@ -139,6 +140,13 @@ class CacheLayout:
 
     def note_progress(self, req: Request) -> None:
         """Called after ``req.num_cached`` advances (decode or chunk)."""
+
+    def rebind(self, device: DeviceLike,
+               memo: Optional[Dict[int, torch.Tensor]] = None) -> None:
+        """Re-place the layout's device buffers on ``device``, dropping
+        the old storage, and allocate there from now on.  A subclass
+        moves its buffers after this (``memo`` as ``to_device``'s)."""
+        self.device = resolve_device(device)
 
     # -- shared sampling tail ----------------------------------------------
     def _sample_batch(self, logits, seeds, positions):
@@ -277,6 +285,11 @@ class PagedKVLayout(CacheLayout):
 
     def cow(self, src: int, dst: int) -> None:
         self._cow_impl(self.cache.k, self.cache.v, src, dst)
+
+    def rebind(self, device: DeviceLike,
+               memo: Optional[Dict[int, torch.Tensor]] = None) -> None:
+        super().rebind(device)
+        self.cache = to_device(self.cache, self.device, memo)
 
 
 class MoEPagedKVLayout(PagedKVLayout):
@@ -462,6 +475,19 @@ class StateCacheLayout(CacheLayout):
         # the exact-prefix cache holds old-weight state for future
         # requests and must drop, mirroring the radix-trie flush
         self._exact.clear()
+
+    def rebind(self, device: DeviceLike,
+               memo: Optional[Dict[int, torch.Tensor]] = None) -> None:
+        """The cache, the zero row and every snapshot follow."""
+        super().rebind(device)
+
+        def move(tree):
+            return to_device(tree, self.device, memo)
+
+        self.cache = move(self.cache)
+        self._zero_row = move(self._zero_row)
+        self._suspended = {k: move(v) for k, v in self._suspended.items()}
+        self._exact = OrderedDict((k, move(v)) for k, v in self._exact.items())
 
     def note_progress(self, req: Request) -> None:
         if (not req.generated and self.exact_prefix_capacity

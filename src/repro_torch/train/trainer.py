@@ -5,8 +5,10 @@ Counterpart of the JAX package's ``train/trainer.py``:
 with a token-level loss) and ``make_prefill_step`` the inference worker's
 logprob recompute, ``make_serve_step`` one decode step against a standing
 cache.  Of the JAX ``TrainHParams``, ``act_spec`` and ``grad_specs``
-(sharding) have no counterpart on one card, and ``compute_dtype`` and
-``value_coef`` are read by nothing in either package.  Every arch kind
+(sharding constraints inside the jitted step) have no counterpart: the
+launcher keeps the weights whole on every rank and reduces the
+gradients through ``make_train_step``'s ``grad_reduce``; ``compute_dtype``
+and ``value_coef`` are read by nothing in either package.  Every arch kind
 runs here (``forward`` carries what is kind-specific); a batch's
 ``image_embeds`` (VLM) or ``frame_embeds`` (encoder-decoder) go to
 ``forward`` as its ``extra``.
@@ -135,13 +137,16 @@ def lm_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
 # ---------------------------------------------------------------------------
 # Step builders
 # ---------------------------------------------------------------------------
-def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss):
+def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss,
+                    grad_reduce=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     Gradient accumulation: the batch is split into n_microbatches chunks
     run one after the other (grads averaged in ``hp.accum_dtype``, metrics
     of the last chunk), bounding activation memory at one microbatch.
     The params and moments are updated in place (see ``adamw_update``).
+    ``grad_reduce`` maps the step's gradients before the update: the
+    launcher's all-reduce over data-parallel ranks.
     """
 
     def grads_of(params, mb: Batch):
@@ -172,6 +177,8 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss):
                          grads, g)
                 del g
             tree_map(lambda acc: acc.div_(nm), grads)
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
         params, opt_state, opt_metrics = adamw_update(
             hp.optimizer, params, grads, opt_state)
         metrics = dict(metrics)

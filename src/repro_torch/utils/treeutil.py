@@ -1,8 +1,8 @@
 """Small utilities over param trees: nested dicts of tensors.
 
 Counterpart of the JAX package's ``utils/treeutil.py``, the part the
-optimizer, trainer and checkpoints use: ``global_norm`` and
-``tree_paths``, with ``tree_map``,
+optimizer, trainer, checkpoints and sharding rules use: ``global_norm``,
+``tree_paths`` and ``map_with_path``, with ``tree_map``,
 ``tree_leaves`` and ``tree_unflatten`` standing in for ``jax.tree_util``
 on dicts.  The runtime's state and messages hold more than dicts (an
 AdamW state is a NamedTuple; a payload may be a list or a tuple), so
@@ -12,7 +12,7 @@ with None an empty subtree.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -65,6 +65,26 @@ def tree_paths(tree) -> Dict[str, Any]:
     return flat
 
 
+def map_with_path(fn: Callable[[str, Any], Any], tree):
+    """tree_map that passes the '/a/b' path string to fn (dicts, lists,
+    tuples and NamedTuples, whose field names make the path)."""
+    return _map_with_path_rec(fn, tree, "")
+
+
+def _map_with_path_rec(fn, node, prefix):
+    if isinstance(node, dict):
+        return {k: _map_with_path_rec(fn, v, f"{prefix}/{k}")
+                for k, v in node.items()}
+    if hasattr(node, "_fields"):  # NamedTuple — use field names in paths
+        vals = {f: _map_with_path_rec(fn, getattr(node, f), f"{prefix}/{f}")
+                for f in node._fields}
+        return type(node)(**vals)
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_with_path_rec(fn, v, f"{prefix}/{i}")
+                          for i, v in enumerate(node))
+    return fn(prefix, node)
+
+
 def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
@@ -105,3 +125,22 @@ def pytree_unflatten(treedef: Any, leaves: List[Any]) -> Any:
 
 def pytree_leaves(tree: Any) -> List[Any]:
     return pytree_flatten(tree)[0]
+
+
+def to_device(tree: Any, device: torch.device,
+              memo: Optional[Dict[int, torch.Tensor]] = None) -> Any:
+    """``tree`` with every tensor leaf on ``device`` (a leaf already there
+    is kept).  ``memo`` maps the id of a tensor already moved to its
+    copy: a tensor that two trees share is copied once and stays shared,
+    so a move never holds two copies of it."""
+    memo = {} if memo is None else memo
+
+    def move(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        out = memo.get(id(x))
+        if out is None:
+            out = memo[id(x)] = x.to(device)
+        return out
+
+    return pytree_map(move, tree)

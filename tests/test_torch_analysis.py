@@ -10,6 +10,7 @@ import time
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 import repro.analysis as ja
 import repro.analysis.concurrency as jconc
@@ -477,24 +478,18 @@ def test_non_strict_controller_skips_lint():
 
 
 def test_kernel_pass_and_cross_card_moves_raise_naming_their_items():
-    """What this port still lacks raises, naming its ROADMAP item: the
-    kernel pass (11b) and moving an engine to another card (12)."""
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ta.analyze(kernels=True)
+    """What the port still lacks raises, naming its ROADMAP item: the
+    pod axis and the sharded layouts at world size > 1 (item 14).  The
+    kernel pass (item 11b) now runs and lints the CUDA launches clean;
+    the rebind (item 12) has its own tests in test_torch_placement.py."""
+    assert ta.analyze(kernels=True) == []
     from repro_torch.configs import get_config
-    from repro_torch.rl.workers import RolloutWorker
+    from repro_torch.launch import train as launch_train
 
-    cfg = get_config("yi-9b").reduced().replace(
-        vocab_size=32, d_model=64, num_heads=4, num_kv_heads=2,
-        head_dim=16, d_ff=128)
-    w = RolloutWorker("rollout/x", cfg=cfg, devices=(0,), device="cpu")
-    try:
-        # a slice that folds onto another card than the engine's
-        w.mesh_of = lambda devices: ("cuda:1",)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            w.bind_devices((1,))
-    finally:
-        w.shutdown()
+    args = launch_train.parse_args(["--smoke", "--device", "cpu",
+                                    "--multi-pod"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        launch_train.run(get_config("yi-9b").reduced(), args)
 
 
 # ---------------------------------------------------------------------------

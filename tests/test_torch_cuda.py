@@ -1485,3 +1485,44 @@ def test_embodied_runner_card_vs_cpu(dev):
         [t.cpu() for t in tree_leaves(card.actor.params())],
         tree_leaves(cpu.actor.params()), p0_cpu,
         _grads(loss, tree_leaves(live)), cpu.rl.lr)
+
+
+# ---------------------------------------------------------------------------
+# flowlint pass 3 against the profiler, and the engine's rebind
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    """``chip_smoke.py``'s module, loaded from its file: its launch
+    phase's cases are the ones these tests hold."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("tag", ["K1", "K2", "K3", "K3bwd", "K4", "K5",
+                                 "K6", "K6bwd", "K7"])
+def test_lint_predicts_the_profilers_launch_records(dev, tag):
+    """Each kernel's pass-3 invocations at a main-path shape equal what
+    the profiler records of one call: the same launches in order, grid,
+    block and dynamic shared memory."""
+    from repro_torch.analysis import kernel_checks as kc
+
+    so = _build.build()
+    _build.library()
+    smoke = _chip_smoke()
+    static = smoke.static_smem(so.with_suffix(".log").read_text())
+    invs, call = {t: (i, c) for t, i, c in smoke.lint_cases()}[tag]
+    assert all(kc.check_invocation(i) == [] for i in invs)
+    call()
+    assert smoke.check_on_card(invs, call, static)[0] == []
+
+
+def test_rollout_rebind_cuda_cpu_cuda(dev):
+    """A rebound rollout worker generates an unmoved one's tokens on every
+    leg, frees >= 90 % of its engine's bytes off the card, and launches
+    K1 and K2 exactly on the card legs (chip_smoke.py's check)."""
+    _chip_smoke().check_rebind()

@@ -91,6 +91,12 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.core, repro_torch.comm, repro_torch.obs\n"
         "import repro_torch.rl, repro_torch.train.data\n"
         "import repro_torch.configs as c; c.get_config('yi-9b')\n"
+        "import repro_torch.analysis.kernel_checks\n"
+        "import repro_torch.analysis.__main__, repro_torch.configs.shapes\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.train\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.cluster\n"
+        "import repro_torch.train.sharding_rules, repro_torch.utils.sharding\n"
+        "import repro_torch.utils.roofline, repro_torch.utils.hardware\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
@@ -177,3 +183,45 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _calls(path: Path):
+    """(dotted callee, node) of every call in ``path``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            yield ast.unparse(node.func), node
+
+
+@pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_writes_no_environment_variable(path):
+    """No module of the port (nor chip_smoke.py) sets an environment
+    variable: ``os.environ`` is read only."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        targets = (node.targets if isinstance(node, ast.Assign) else
+                   [node.target] if isinstance(node, (ast.AugAssign,
+                                                      ast.AnnAssign))
+                   else [])
+        for t in targets:
+            if isinstance(t, ast.Subscript) and \
+                    ast.unparse(t.value) == "os.environ":
+                bad.append(ast.unparse(t))
+        if isinstance(node, ast.Delete):
+            bad += [ast.unparse(t) for t in node.targets
+                    if "os.environ" in ast.unparse(t)]
+    bad += [name for name, _ in _calls(path)
+            if name in ("os.putenv", "os.unsetenv", "os.environ.update",
+                        "os.environ.setdefault", "os.environ.pop",
+                        "os.environ.clear")]
+    assert not bad, f"{path.relative_to(ROOT)} writes {bad}"
+
+
+def test_only_the_cluster_module_initializes_a_process_group():
+    """``launch.cluster.maybe_init_distributed`` is the one place that
+    starts a ``torch.distributed`` process group."""
+    where = sorted(str(p.relative_to(ROOT)) for p in SCANNED
+                   for name, _ in _calls(p)
+                   if name.endswith("init_process_group"))
+    assert where == ["src/repro_torch/launch/cluster.py"], where

@@ -347,9 +347,11 @@ def test_rollout_rebind_keeps_engine_cache_on_the_worker_device():
 
 
 def test_rollout_rebind_onto_another_card_raises(monkeypatch):
-    """The engine's cache lives on one card: a slice that folds onto
-    another card is refused, naming the multi-device item."""
+    """A rebind onto a card the host does not have raises and leaves the
+    worker, its state and its engine where they were (the port never
+    falls back to the CPU)."""
     from repro_torch.configs import get_config
+    from repro_torch.models import init_model
     from repro_torch.rl.workers import RolloutWorker
 
     cfg = get_config("yi-9b").reduced().replace(
@@ -357,12 +359,79 @@ def test_rollout_rebind_onto_another_card_raises(monkeypatch):
         d_ff=64)
     w = RolloutWorker("ro2/0", cfg=cfg, max_new_tokens=2, devices=(0,),
                       device="cpu")
-    monkeypatch.setattr(RolloutWorker, "mesh_of",
-                        lambda self, d: (torch.device("meta"),))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        w.bind_devices((1,))
-    assert w.devices == (0,)
+    w.update_weights(init_model(torch.Generator().manual_seed(0), cfg,
+                                device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        w.bind_devices((1,), platform="cuda")
+    assert w.devices == (0,) and w.device == torch.device("cpu")
+    assert w.engine.device.type == "cpu"
+    assert all(x.device.type == "cpu"
+               for x in tree_leaves_of(w.get_state("params")))
     w.shutdown()
+
+
+def _rebind_worker(arch: str, name: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.rl.workers import RolloutWorker
+
+    cfg = get_config(arch).reduced().replace(vocab_size=32)
+    w = RolloutWorker(name, cfg=cfg, max_new_tokens=3, seed=0, temperature=0.0,
+                      devices=(0, 1), engine="paged", device="cpu")
+    w.update_weights(init_model(torch.Generator().manual_seed(0), cfg,
+                                device="cpu"))
+    return w
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m"])
+def test_rollout_rebind_moves_engine_cache(arch):
+    """JAX's regression on the port: the engine's cache (a paged pool, or
+    the state cache with its zero row and prompt snapshots) and the
+    applied weights follow a rebind onto another device, one copy of
+    the weights shared by worker and engine, the old storage dropped.
+    The CPU has no second device to come back from, so the move goes to
+    the meta device; the card's tests and chip_smoke.py bind cuda -> cpu
+    -> cuda and compare tokens.  A rebind whose slice folds onto the same
+    device generates the tokens of a worker never rebound."""
+    import gc
+    import weakref
+
+    prompts = np.arange(1, 9, dtype=np.int32).reshape(2, 4) % 30 + 1
+    still = _rebind_worker(arch, f"still/{arch}")
+    want = [still.generate({"prompt_tokens": prompts})["tokens"]
+            for _ in range(2)]
+    w = _rebind_worker(arch, f"moved/{arch}")
+    np.testing.assert_array_equal(
+        w.generate({"prompt_tokens": prompts})["tokens"], want[0])
+    w.bind_devices((4, 5))  # folds onto the CPU again: nothing moves
+    np.testing.assert_array_equal(
+        w.generate({"prompt_tokens": prompts})["tokens"], want[1])
+    eng = w.engine
+    old = [weakref.ref(x) for x in tree_leaves_of(eng.cache)]
+    w.bind_devices((2, 3), platform="meta")
+    assert w.device.type == "meta" and eng.device.type == "meta"
+    assert eng.layout.device.type == "meta"
+    assert all(x.device.type == "meta" for x in tree_leaves_of(eng.cache))
+    params = tree_leaves_of(w.get_state("params"))
+    assert params and all(x.device.type == "meta" for x in params)
+    # the applied weights are the worker's own tensors, not a second copy
+    assert all(a is b for a, b in zip(tree_leaves_of(eng.params), params))
+    if hasattr(eng.layout, "_zero_row"):
+        rows = [eng.layout._zero_row, *eng.layout._exact.values()]
+        assert len(rows) > 1
+        assert all(x.device.type == "meta"
+                   for row in rows for x in tree_leaves_of(row))
+    gc.collect()
+    assert all(r() is None for r in old)  # the CPU storage is gone
+    still.shutdown()
+    w.shutdown()
+
+
+def tree_leaves_of(tree):
+    from repro_torch.utils.treeutil import pytree_flatten
+
+    return pytree_flatten(tree)[0]
 
 
 # ---------------------------------------------------------------------------
