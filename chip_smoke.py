@@ -127,11 +127,15 @@ and last the runtime end to end:
                 recovery's seconds by step;
  13. launch     flowlint pass 3 (``check_kernels``, ``check_rng``) clean
                 at the zoo's shapes, and each kernel's predicted launches
-                (K1-K7, K3's and K6's backward at a main-path shape) equal
-                to the profiler's records (grid, block, shared memory);
-                ``launch.train.run`` at world size 1 on nccl (yi-9b full
-                width, 2 layers, f32 + AdamW, 3 steps of 4 x 1024) equal
-                to ``make_train_step`` run directly, bit for bit; a
+                (K1-K7, K3's and K6's backward at a main-path shape, K3
+                forward and backward at the local heads of a tensor-
+                parallel rank of yi-9b, 16 / 2 and 8 / 1) equal to the
+                profiler's records (grid, block, shared memory); K3 at
+                those local heads against its plain version;
+                ``launch.train.run`` at world size 1 on nccl through the
+                layout code (yi-9b full width, 2 layers, f32 + AdamW, 3
+                steps of 4 x 1024) equal to ``make_train_step`` run
+                directly, bit for bit; a
                 reduced yi-9b rollout worker bound cuda -> cpu -> cuda
                 with the tokens of an unmoved one and >= 90 % of its
                 engine's bytes freed off the card; the dry-run of yi-9b
@@ -442,6 +446,7 @@ FLASH_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 YI_HEADS = (32, 4, 128)  # (H, KV, head_dim)
 GRANITE_HEADS = (24, 8, 64)
+TP_MODEL_AXES = (2, 4)  # yi-9b's 32 / 4 heads: 16 / 2 and 8 / 1 a rank
 
 
 def flash_case(g, dtype, B: int, S: int, window: int, backward: bool,
@@ -3239,6 +3244,7 @@ def lint_cases():
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.train.parallel import local_heads
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3280,6 +3286,20 @@ def lint_cases():
     cases.append(("K3bwd", kc.flash_bwd_invocations(
         "yi-train", B=2, H=H, S=S, D=D, KV=KV, sm_count=sms),
         lambda: fa.flash_attention_bwd(qf, kf, vf, out, lse, dout)))
+    # K3 forward and backward on a tensor-parallel rank of yi-9b's train
+    # step: the launcher's model axis 2 (16 / 2 heads) and 4 (8 / 1)
+    for model in TP_MODEL_AXES:
+        invs = kc.tensor_parallel_flash_invocations(
+            "yi-train", B=2, H=H, S=S, D=D, KV=KV, model=model,
+            sm_count=sms)
+        Hl, KVl = local_heads(H, KV, model)
+        qt, kt, vt, dt = (rnd(2, h, S, D) for h in (Hl, KVl, KVl, Hl))
+
+        def fwd_bwd(qt=qt, kt=kt, vt=vt, dt=dt):
+            o, lse_t = fa.flash_attention_bhsd(qt, kt, vt)
+            fa.flash_attention_bwd(qt, kt, vt, o, lse_t, dt)
+
+        cases.append((f"K3tp{model}", invs, fwd_bwd))
     # K4, K5: granite-moe's experts, bf16 (prefill capacity, decode batch)
     E, k, d, f = GRANITE_MOE
     buf, w = rnd(E, 64, d, dtype=bf), rnd(E, d, f, dtype=bf)
@@ -3372,9 +3392,28 @@ def check_lint(so) -> None:
             for inv in invs) + ": as the profiler recorded")
 
 
+def check_flash_tp() -> None:
+    """K3 forward and backward at the local heads of a tensor-parallel
+    rank of yi-9b's f32 train step (model axis 2: 16 / 2 heads, 4: 8 /
+    1; B 2, S 1024) against their plain versions, at ``flash_case``'s
+    tolerances."""
+    import torch
+
+    from repro_torch.train.parallel import local_heads
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    H, KV, D = YI_HEADS
+    for model in TP_MODEL_AXES:
+        Hl, KVl = local_heads(H, KV, model)
+        c = flash_case(g, torch.float32, 2, 1024, 0, True,
+                       heads=(Hl, KVl, D))
+        log(f"launch: tensor-parallel rank, model axis {model}: "
+            + c["line"].split(": ", 1)[1])
+
+
 def lint_main() -> None:
-    """:func:`check_lint` as the body of a fresh process (see
-    :func:`check_lint_fresh`)."""
+    """:func:`check_lint` and :func:`check_flash_tp` as the body of a
+    fresh process (see :func:`check_lint_fresh`)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -3384,6 +3423,7 @@ def lint_main() -> None:
     so = _build.build()
     _build.library()
     check_lint(so)
+    check_flash_tp()
 
 
 def check_lint_fresh() -> None:
@@ -3417,15 +3457,17 @@ def free_port() -> int:
 
 LAUNCH_LAYERS = 2  # of yi-9b's 48: f32 + AdamW, the launcher's run
 LAUNCH_RUN = ["--arch", "yi-9b", "--steps", "3", "--batch", "4", "--seq",
-              "1024"]
+              "1024", "--model-axis", "1"]
 
 
 def check_launcher() -> None:
     """``launch.train.run`` at world size 1 on nccl (a (1, 1)
-    ``DeviceMesh``), yi-9b at full width cut to 2 layers, f32 + AdamW,
-    3 steps of 4 x 1024 tokens: its losses and its params after the steps
-    equal, bit for bit, the same steps of ``make_train_step`` run
-    directly; the process group is gone afterwards."""
+    ``DeviceMesh``), through the layout code (``param_specs`` on the
+    mesh, ``shard_params``, the step's ``Layout`` gather, reduce and
+    norm), yi-9b at full width cut to 2 layers, f32 + AdamW, 3 steps of
+    4 x 1024 tokens: its losses and its params after the steps equal,
+    bit for bit, the same steps of ``make_train_step`` run directly; the
+    process group is gone afterwards."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3435,6 +3477,7 @@ def check_launcher() -> None:
     from repro_torch.models import init_model
     from repro_torch.train import AdamWConfig, TrainHParams, make_train_step
     from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.sharding_rules import param_specs
     from repro_torch.train.trainer import lm_loss
     from repro_torch.utils.treeutil import tree_leaves
 
@@ -3451,6 +3494,8 @@ def check_launcher() -> None:
     assert run.mesh_kind == "DeviceMesh", run.mesh_kind
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg,
                         torch.float32, "cuda")
+    assert not run.layout.groups, run.layout.groups
+    assert run.layout.specs == param_specs(run.layout.mesh, cfg, params)
     opt = init_adamw(params)
     step = make_train_step(cfg, TrainHParams(
         optimizer=AdamWConfig(lr=args.lr, warmup_steps=10, clip_norm=1.0),
@@ -3469,7 +3514,8 @@ def check_launcher() -> None:
     assert same, "the launcher's params differ from the direct steps'"
     gb = sum(t.numel() * t.element_size()
              for t in tree_leaves(params)) / 1e9
-    log(f"launch: launcher world 1 on nccl, DeviceMesh {run.mesh_dims}, "
+    log(f"launch: launcher world 1 on nccl, DeviceMesh {run.mesh_dims} "
+        "through the layout (param_specs, shard_params, Layout), "
         f"yi-9b full width {LAUNCH_LAYERS} layers f32 ({gb:.2f} GB) + AdamW, "
         f"{args.steps} steps of {args.batch} x {args.seq}: {wall:.2f} s "
         f"with init; losses {got} equal the direct make_train_step's and "
@@ -3545,8 +3591,8 @@ def check_rebind() -> None:
         f"{freed / 1e6:.2f} MB of the engine's {engine_bytes / 1e6:.2f} MB "
         f"({100 * freed / engine_bytes:.1f} %); K1 {cfg.num_layers} x "
         f"{n1} and {cfg.num_layers} x {n3}, K2 {n1} and {n3} on the card "
-        f"legs, exactly; {time.perf_counter() - t0:.2f} s. Moving between "
-        "two cards needs a second card: not run on one H100")
+        f"legs, exactly; {time.perf_counter() - t0:.2f} s (the move "
+        "between two cards: tools/multicard_smoke.py, on four)")
     still.shutdown()
     w.shutdown()
 

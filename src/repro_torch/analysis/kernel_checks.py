@@ -55,6 +55,7 @@ from repro_torch.kernels.paged_attention import split_plan
 from repro_torch.kernels.ssd_scan import MAX_CHUNK, MAX_HEAD_DIM as SSD_MAX_P
 from repro_torch.kernels.ssd_scan import MAX_STATE
 from repro_torch.serve.sampling import _mix32
+from repro_torch.train.parallel import local_heads
 from repro_torch.utils.hardware import H100_SM_COUNT
 
 PASS = "kernel"
@@ -251,6 +252,39 @@ def flash_bwd_invocations(shape_name: str, *, B: int, H: int, S: int,
         ],
         constraints=gqa, bounds=bound, **common))
     return out
+
+
+def tensor_parallel_flash_invocations(
+        shape_name: str, *, B: int, H: int, S: int, D: int, KV: int,
+        model: int, dtype: str = "float32", backward: bool = True,
+        sm_count: int = H100_SM_COUNT) -> List[KernelInvocation]:
+    """K3's forward (and backward) launches on one model rank of a layout
+    that splits ``H`` query heads over ``model`` ranks: the rank's local
+    heads and the KV heads they read (``train.parallel.local_heads``;
+    when ``KV % model != 0`` the rules keep ``wk``/``wv`` whole and the
+    rank slices the ones its queries map to).  The kernel maps local head j to local KV head ``j //
+    (H_loc / KV_loc)``, the global map only when the local heads cover
+    whole groups of G = H / KV or lie inside one: any other split is
+    K106 (the layout raises there)."""
+    h, kv = local_heads(H, KV, model)
+    name = f"{shape_name}@model{model}"
+    out = [flash_invocation(name, B=B, H=h, S=S, D=D, KV=kv, dtype=dtype)]
+    if backward:
+        out += flash_bwd_invocations(name, B=B, H=h, S=S, D=D, KV=kv,
+                                     sm_count=sm_count)
+    if h != H:
+        G = H // KV
+        local_map = Divisibility(
+            f"local query heads ({h}) against groups of H / KV ({G}): "
+            f"whole groups or one group a rank", max(h, G), min(h, G),
+            code="K106")
+        for inv in out:
+            inv.constraints = inv.constraints + [local_map]
+    return out
+
+
+YI_TP_HEADS = (32, 4, 128)  # yi-9b's (H, KV, head_dim)
+TP_MODEL_AXES = (2, 4, 8)
 
 
 def paged_invocation(shape_name: str, *, B: int, H: int, D: int, P: int,
@@ -605,6 +639,14 @@ def default_invocations(sm_count: int = H100_SM_COUNT
     # MoE FFN hot-spot at the train shape: 8 experts, top-2, capacity
     # ceil(4096 * 2 / 8 * 1.25) = 1280 dispatched tokens per expert
     out.append(gmm_invocation("train_4k", E=8, C=1280, D=2048, F=5632))
+    # the f32 train step's K3 on a tensor-parallel rank of yi-9b's heads
+    # (the launcher's model axis): 16 / 2, 8 / 1 and 4 / 1 (KV whole)
+    sc = SHAPES["train_4k"]
+    H, KV, D = YI_TP_HEADS
+    for model in TP_MODEL_AXES:
+        out.extend(tensor_parallel_flash_invocations(
+            "train_4k/yi-9b", B=min(sc.global_batch, 8), H=H, S=sc.seq_len,
+            D=D, KV=KV, model=model, sm_count=sm_count))
     return out
 
 

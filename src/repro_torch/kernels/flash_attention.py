@@ -134,11 +134,12 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
     B, H, S, D = q.shape
     out = torch.empty_like(q)  # q's strides: the model layout stays intact
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _build.library().flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _strides(q, k, v, out), B, H, k.shape[1], S, D,
-        int(causal), int(window), _TYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = _build.library().flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _strides(q, k, v, out), B, H, k.shape[1], S, D,
+            int(causal), int(window), _TYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bhsd")
     flash_attention_bhsd.launches += 1
     return out, lse
@@ -160,18 +161,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     B, H, S, D = q.shape
     KV = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _build.library()
-    # dS tiles, delta = rowsum(dO * O), the head groups' partial dK and dV
-    work = torch.empty(lib.flash_attention_bwd_workspace(
-        B, H, KV, S, D, int(causal), int(window)), dtype=torch.float32,
-        device=q.device)
-    err = lib.flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, out, dout, dq, dk, dv), B, H, KV, S, D,
-        int(causal), int(window), _TYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        lib = _build.library()
+        # dS tiles, delta = rowsum(dO * O), the head groups' partial dK and dV
+        work = torch.empty(lib.flash_attention_bwd_workspace(
+            B, H, KV, S, D, int(causal), int(window)), dtype=torch.float32,
+            device=q.device)
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            _strides(q, k, v, out, dout, dq, dk, dv), B, H, KV, S, D,
+            int(causal), int(window), _TYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

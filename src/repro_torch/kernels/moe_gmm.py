@@ -136,10 +136,12 @@ def _rows_arg(rows, E: int, dev) -> int:
 def _gmm_launch(a, w, w_up, out, rows) -> None:
     E, C, D = a.shape
     F_ = w.shape[2]
-    err = _build.library().grouped_matmul_launch(
-        a.data_ptr(), w.data_ptr(), 0 if w_up is None else w_up.data_ptr(),
-        out.data_ptr(), _rows_arg(rows, E, a.device), E, C, D, F_,
-        _TYPES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+    with torch.cuda.device(a.device):
+        err = _build.library().grouped_matmul_launch(
+            a.data_ptr(), w.data_ptr(),
+            0 if w_up is None else w_up.data_ptr(), out.data_ptr(),
+            _rows_arg(rows, E, a.device), E, C, D, F_, _TYPES[a.dtype],
+            torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "grouped_matmul")
     grouped_matmul.launches += 1
 
@@ -189,18 +191,20 @@ def moe_decode_gmm(x, expert_idx, gate_vals, gate_w, up_w, down_w):
     slot = torch.empty((T, k), dtype=torch.int32, device=dev)
     counts = torch.empty((E,), dtype=torch.int32, device=dev)
     buf = torch.empty((E, C, d), dtype=x.dtype, device=dev)
-    err = lib.moe_dispatch_launch(
-        x.data_ptr(), idx.data_ptr(), slot.data_ptr(), counts.data_ptr(),
-        buf.data_ptr(), T, k, d, E, C, _TYPES[x.dtype], stream)
+    with torch.cuda.device(dev):
+        err = lib.moe_dispatch_launch(
+            x.data_ptr(), idx.data_ptr(), slot.data_ptr(), counts.data_ptr(),
+            buf.data_ptr(), T, k, d, E, C, _TYPES[x.dtype], stream)
     _build.check(err, "moe_dispatch")
     h = torch.empty((E, C, f), dtype=x.dtype, device=dev)
     _gmm_launch(buf, gate_w, up_w, h, counts)
     out = torch.empty((E, C, d), dtype=x.dtype, device=dev)
     _gmm_launch(h, down_w, None, out, counts)
     y = torch.empty((T, d), dtype=x.dtype, device=dev)
-    err = lib.moe_combine_launch(out.data_ptr(), slot.data_ptr(),
-                                 gate.data_ptr(), y.data_ptr(), T, k, d,
-                                 _TYPES[x.dtype], stream)
+    with torch.cuda.device(dev):
+        err = lib.moe_combine_launch(out.data_ptr(), slot.data_ptr(),
+                                     gate.data_ptr(), y.data_ptr(), T, k, d,
+                                     _TYPES[x.dtype], stream)
     _build.check(err, "moe_combine")
     moe_decode_gmm.launches += 1
     return y

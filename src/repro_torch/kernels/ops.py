@@ -4,6 +4,10 @@ A tensor on the card goes to the hand-written CUDA kernel; a tensor on
 the CPU goes to the kernel's plain PyTorch version, and so does one on
 the meta device, which holds no data (the dry-run counts the plain
 versions' FLOPs there).  There is no fallback: a failed launch raises.
+Each wrapper launches under its tensors' card (``torch.cuda.device``):
+the C launchers set a kernel's shared-memory attribute and launch on
+the calling thread's current device, and a worker rebound to another
+card than the process's current one keeps its tensors there.
 """
 from __future__ import annotations
 

@@ -157,11 +157,12 @@ def paged_attention_bhd(q, k_pages, v_pages, block_tables, context_lens):
     lens = context_lens.contiguous()
     out = torch.empty_like(q)
     lib = _build.library()
-    err = lib.paged_attention_bhd_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, KV, D, page, nb, _TYPES[q.dtype], _TYPES[k_pages.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.paged_attention_bhd_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            B, H, KV, D, page, nb, _TYPES[q.dtype], _TYPES[k_pages.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "paged_attention_bhd")
     paged_attention_bhd.launches += 1
     return out

@@ -160,10 +160,12 @@ def fused_sample_bv(logits, gumbel, *, temperature: float = 1.0,
     tok = torch.empty((B,), dtype=torch.int32, device=dev)
     lp = torch.empty((B,), dtype=torch.float32, device=dev)
     lib = _build.library()
-    err = lib.fused_sample_bv_launch(
-        logits.data_ptr(), gumbel.data_ptr(), tok.data_ptr(), lp.data_ptr(),
-        B, V, float(temperature), int(top_k), float(top_p), int(vocab_size),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.fused_sample_bv_launch(
+            logits.data_ptr(), gumbel.data_ptr(), tok.data_ptr(),
+            lp.data_ptr(), B, V, float(temperature), int(top_k),
+            float(top_p), int(vocab_size),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_sample_bv")
     fused_sample_bv.launches += 1
     return tok, lp

@@ -151,12 +151,13 @@ def ssd_scan_bhcsp(x, dt, A, Bm, Cm, D, *, save_states: bool = False):
     y = torch.empty_like(x)  # x's strides: the model layout stays intact
     states = (torch.empty((B, H, nc, P, N), dtype=torch.float32,
                           device=x.device) if save_states else None)
-    err = _build.library().ssd_scan_fwd_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
-        states.data_ptr() if states is not None else None,
-        _strides(x, dt, A, D, Bm, Cm, y), B, H, nc * s, P, N, s,
-        _TYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = _build.library().ssd_scan_fwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
+            states.data_ptr() if states is not None else None,
+            _strides(x, dt, A, D, Bm, Cm, y), B, H, nc * s, P, N, s,
+            _TYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan_bhcsp")
     ssd_scan_bhcsp.launches += 1
     return (y, states) if save_states else y
@@ -187,13 +188,14 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, states, dy):
     dcp = torch.empty((B, H, nc * s, N), **f32)
     dap = torch.empty((B, H, nc), **f32)
     ddp = torch.empty((B, H, nc), **f32)
-    err = _build.library().ssd_scan_bwd_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), D.data_ptr(), dy.data_ptr(), states.data_ptr(),
-        None, dx.data_ptr(), ddt.data_ptr(), dbp.data_ptr(),
-        dcp.data_ptr(), dap.data_ptr(), ddp.data_ptr(),
-        _strides(x, dt, A, D, Bm, Cm, dy, dx, ddt), B, H, nc * s, P, N, s,
-        _TYPES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = _build.library().ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), dy.data_ptr(), states.data_ptr(),
+            None, dx.data_ptr(), ddt.data_ptr(), dbp.data_ptr(),
+            dcp.data_ptr(), dap.data_ptr(), ddp.data_ptr(),
+            _strides(x, dt, A, D, Bm, Cm, dy, dx, ddt), B, H, nc * s, P, N, s,
+            _TYPES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
     dBm = dbp.sum(dim=1).reshape(B, nc, s, N).to(Bm.dtype)

@@ -78,11 +78,12 @@ def ssm_state_update_bh(state, x, dt, A, Bm, Cm, D):
         return y, out
     vals = [*state.stride()[:3], *x.stride()[:2], *dt.stride(), *A.stride(),
             *D.stride(), Bm.stride(0), Cm.stride(0)]
-    err = _build.library().ssm_state_update_launch(
-        state.data_ptr(), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
-        out.data_ptr(), (ctypes.c_longlong * len(vals))(*vals), B, H, P, N,
-        _TYPES[x.dtype], torch.cuda.current_stream(state.device).cuda_stream)
+    with torch.cuda.device(state.device):
+        err = _build.library().ssm_state_update_launch(
+            state.data_ptr(), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
+            out.data_ptr(), (ctypes.c_longlong * len(vals))(*vals), B, H, P, N,
+            _TYPES[x.dtype], torch.cuda.current_stream(state.device).cuda_stream)
     _build.check(err, "ssm_state_update_bh")
     ssm_state_update_bh.launches += 1
     return y, out

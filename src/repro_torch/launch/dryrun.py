@@ -9,9 +9,11 @@ logical production mesh (``launch/mesh.py``) and records, for each case:
   * the resident bytes a device: the parameters (bf16), the AdamW
     moments (f32, laid out as the parameters) of a train step and the
     decode state of a decode step, from the sharding rules
-    (``train/sharding_rules.py``), and the batch's; whether they fit in
-    the card's 80 GB (``fits_resident``: activations and temporaries
-    are not counted, so a case that fits may still not run);
+    (``train/sharding_rules.py``: the layout the launcher gives its f32
+    params and moments, :func:`train_state_bytes`), and the batch's;
+    whether they fit in the card's 80 GB (``fits_resident``:
+    activations and temporaries are not counted, so a case that fits
+    may still not run);
   * FLOPs from ``model_flops`` (6 N D), with ``FlopCounterMode`` over
     one meta forward (or decode step) of the kernels' plain versions as
     a cross-check, and the bytes that forward's ops move (each op's
@@ -94,6 +96,19 @@ def arch_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
 def meta_params(cfg: ModelConfig, dtype=PARAM_DTYPE):
     """The full-size weights as meta tensors."""
     return init_model(torch.Generator().manual_seed(0), cfg, dtype, META)
+
+
+def train_state_bytes(cfg: ModelConfig, mesh: Any,
+                      dtype=PARAM_DTYPE) -> Dict[str, int]:
+    """Bytes a device holds of ``cfg``'s params (in ``dtype``) and AdamW
+    moments (f32) laid out by ``param_specs`` on ``mesh``: at f32, what
+    each rank of the launcher keeps (``launch/train.py``)."""
+    params = meta_params(cfg, dtype)
+    specs = param_specs(mesh, cfg, params)
+    opt = init_adamw(params)
+    return {"param_bytes": per_device_bytes(mesh, params, specs),
+            "opt_bytes": per_device_bytes(mesh, opt.mu, specs)
+            + per_device_bytes(mesh, opt.nu, specs)}
 
 
 def meta_batch(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:

@@ -7,9 +7,10 @@ process group.
   * :func:`make_production_mesh` — the (data=16, model=16) and (pod=2,
     data=16, model=16) meshes as :class:`LogicalMesh` es: axis names and
     sizes for the sharding rules and the dry-run, no devices;
-  * :func:`make_local_mesh` — a ``DeviceMesh`` ("data", "model") over the
-    process group's ranks when one is initialized (its size must be
-    data x model), else the logical (data, model) mesh of one process;
+  * :func:`make_local_mesh` — a ``DeviceMesh`` ("data", "model"), or
+    ("pod", "data", "model") with a pod axis, over the process group's
+    ranks when one is initialized (its size must be the product of the
+    axes), else the logical mesh of one process;
   * :func:`mesh_for_devices` — the local devices backing a cluster
     device slice, the mesh a worker rebuilds when a plan rebinds it.
 """
@@ -30,24 +31,33 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
 
 
 def make_local_mesh(model: int = 1, data: int = 1,
-                    device_type: Optional[str] = None):
-    """A (data, model) ``DeviceMesh`` over the process group, or the
-    logical (data, model) mesh when no process group is up (one process:
-    ``data * model`` must then be 1).  ``device_type`` defaults to the
-    process group's backend's: "cuda" under nccl, else "cpu"."""
+                    device_type: Optional[str] = None, *,
+                    pod: Optional[int] = None):
+    """A (data, model) ``DeviceMesh`` over the process group, (pod, data,
+    model) when ``pod`` is given (ranks pod-major, as JAX lays out its
+    multi-pod mesh), or the logical mesh of those axes when no process
+    group is up (one process: the axes' product must then be 1).
+    ``device_type`` defaults to the process group's backend's: "cuda"
+    under nccl, else "cpu"."""
     import torch.distributed as dist
 
+    names: Tuple[str, ...] = ("data", "model")
+    sizes: Tuple[int, ...] = (data, model)
+    if pod is not None:
+        names, sizes = ("pod",) + names, (pod,) + sizes
+    n = 1
+    for s in sizes:
+        n *= s
     if not (dist.is_available() and dist.is_initialized()):
-        assert model * data == 1, (model, data, "no process group")
-        return LogicalMesh(("data", "model"), (data, model))
-    n = dist.get_world_size()
-    assert model * data == n, (model, data, n)
+        assert n == 1, (dict(zip(names, sizes)), "no process group")
+        return LogicalMesh(names, sizes)
+    assert n == dist.get_world_size(), (dict(zip(names, sizes)),
+                                        dist.get_world_size())
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(device_type, (data, model),
-                            mesh_dim_names=("data", "model"))
+    return init_device_mesh(device_type, sizes, mesh_dim_names=names)
 
 
 def mesh_for_devices(global_ids: Sequence[int], *,

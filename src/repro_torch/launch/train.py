@@ -1,29 +1,38 @@
-"""Training launcher: mesh + data-parallel batch + train loop.
+"""Training launcher: mesh + sharded state + train loop.
 
-Counterpart of the JAX package's ``launch/train.py``, with its flags.
-One process a rank: a coordinator (``REPRO_COORD_ADDR``,
+Counterpart of the JAX package's ``launch/train.py``, with its flags and
+``--model-axis``.  One process a rank: a coordinator (``REPRO_COORD_ADDR``,
 ``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID``, read by
 ``launch.cluster.maybe_init_distributed``) brings up a
 ``torch.distributed`` process group, ``nccl`` on the card and ``gloo`` on
-the CPU; without one the launcher runs alone.  The ranks form a
-("data", "model") mesh of (world, 1): each rank holds the whole weights,
-takes its rows of the batch by ``array_batch_specs`` and all-reduces the
-gradients in one flat f32 bucket before the in-place AdamW, so the step
-equals the one-process step on the whole batch.  At world size 1 it
-runs ``make_train_step`` on the local tensors and reduces nothing.
+the CPU; a process group the caller has already started is used as it
+is and left up; without either the launcher runs alone.
 
-A "model" axis above 1, the pod axis of ``--multi-pod`` and FSDP
-layouts of the weights are not here (ROADMAP.md queue 1, item 14): the
-mesh's model axis is 1, and the launcher refuses ``--multi-pod``.  The
-sharding rules, the dry-run (``launch/dryrun.py``) and
-``comm.resharding.reshard`` cover both axes already.
+The ranks form a ("data", "model") mesh of (world / model, model), or
+with ``--multi-pod`` a ("pod", "data", "model") mesh of (2, world /
+(2 model), model).  The params are initialised whole from the seed, as
+at world size 1, and each rank keeps its shard of every leaf by
+``param_specs`` (``train.parallel.shard_params``): the d_model
+dimensions over "data" (FSDP; the AdamW moments mirror the shards, so
+ZeRO), heads, d_ff, experts and the vocabulary over "model", each pod a
+replica of the layout (HSDP).  Each rank takes its rows of the batch by
+``array_batch_specs`` (over ("pod", "data"): the model ranks of one data
+group take the same rows).  The step (``make_train_step`` with the
+``train.parallel.Layout``) gathers each layer before use, splits
+self-attention and MLP over "model", reduces the gradients and clips by
+the whole gradient's norm, so it equals the one-process step on the
+whole batch; at world size 1 every axis has size 1 and it is
+``make_train_step``'s bit for bit.  ``--checkpoint`` gathers the whole
+leaves and rank 0 writes them in the format ``load_checkpoint`` reads
+(the JAX package's too): a sharded run's checkpoint loads into a
+one-rank run.
 
 Usage:
   python -m repro_torch.launch.train --arch yi-9b --smoke --steps 10 \\
       --device cpu
-  REPRO_COORD_ADDR=localhost:29500 REPRO_NUM_PROCESSES=2 \\
+  REPRO_COORD_ADDR=localhost:29500 REPRO_NUM_PROCESSES=4 \\
       REPRO_PROCESS_ID=<rank> python -m repro_torch.launch.train \\
-      --arch yi-9b --batch 8 --seq 1024         # one process a card
+      --arch yi-9b --batch 8 --seq 1024 --model-axis 2  # a process a card
 """
 from __future__ import annotations
 
@@ -41,25 +50,28 @@ from repro_torch.launch.cluster import maybe_init_distributed
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import init_model
 from repro_torch.train.checkpoint import save_checkpoint
-from repro_torch.train.optimizer import AdamWConfig, init_adamw
-from repro_torch.train.sharding_rules import array_batch_specs
+from repro_torch.train.optimizer import AdamWConfig, AdamWState, init_adamw
+from repro_torch.train.parallel import Layout, shard_params
+from repro_torch.train.sharding_rules import array_batch_specs, param_specs
 from repro_torch.train.trainer import TrainHParams, lm_loss, make_train_step
 from repro_torch.utils.logging import log
 from repro_torch.utils.sharding import placements, set_active_mesh
-from repro_torch.utils.treeutil import tree_leaves, tree_unflatten
-
-UNSUPPORTED = ("ROADMAP.md queue 1, item 14: FSDP and tensor-parallel "
-               "layouts at world size > 1")
 
 
 class TrainRun(NamedTuple):
-    """What :func:`run` leaves: the trained params and AdamW state, each
-    step's metrics as floats, and the mesh it ran on."""
+    """What :func:`run` leaves: this rank's shards of the trained params
+    and AdamW state, each step's metrics as floats, the mesh it ran on,
+    the layout, each step's seconds on this rank, and on the card the
+    peak bytes allocated over the steps (after the whole init was
+    freed)."""
     params: Any
     opt: Any
     history: List[Dict[str, float]]
     mesh_dims: Dict[str, int]
     mesh_kind: str  # "DeviceMesh" under a process group, else "LogicalMesh"
+    layout: Layout
+    step_seconds: List[float]
+    peak_bytes: Optional[int] = None
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -72,7 +84,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config, no activation recompute")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks of the mesh's model axis (tensor parallel)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="a pod axis of 2 over the world (HSDP)")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--device", default=None,
                     help="the card by default; 'cpu' runs the kernels' "
@@ -80,42 +95,38 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _allreduce_mean(world: int):
-    """Average gradients over the ranks: one flat f32 bucket, one
-    all-reduce, each leaf cast back to its type."""
-    import torch.distributed as dist
-
-    def reduce(grads):
-        leaves = tree_leaves(grads)
-        flat = torch.cat([g.reshape(-1).float() for g in leaves])
-        dist.all_reduce(flat)
-        flat.div_(world)
-        out, off = [], 0
-        for g in leaves:
-            out.append(flat[off:off + g.numel()].view(g.shape).to(g.dtype))
-            off += g.numel()
-        return tree_unflatten(grads, out)
-
-    return reduce
+def layout_mesh(world: int, model: int, multi_pod: bool,
+                device_type: str):
+    """The launcher's mesh over ``world`` ranks: (data, model), or (pod 2,
+    data, model) for ``multi_pod``, data taking what is left."""
+    pod = 2 if multi_pod else 1
+    if model < 1 or world % (pod * model):
+        raise ValueError(
+            f"{world} rank(s) do not make a mesh of pod {pod} x model "
+            f"{model}: the world must be a multiple of {pod * model}")
+    return make_local_mesh(model=model, data=world // (pod * model),
+                           device_type=device_type,
+                           pod=2 if multi_pod else None)
 
 
 def run(cfg: ModelConfig, args: argparse.Namespace, *,
         addr: Optional[str] = None, num_processes: Optional[int] = None,
         process_id: Optional[int] = None) -> TrainRun:
-    """Train ``cfg`` as ``args`` says.  The process group, when one comes
-    up (``addr`` or the environment), is destroyed before returning."""
+    """Train ``cfg`` as ``args`` says.  A process group this call brings
+    up (``addr`` or the environment) is destroyed before returning; one
+    already up is used and left up."""
     import torch.distributed as dist
 
     device = resolve_device(args.device)
-    distributed = maybe_init_distributed(addr, num_processes, process_id,
-                                         device=device)
+    owned = not (dist.is_available() and dist.is_initialized())
+    distributed = (maybe_init_distributed(addr, num_processes, process_id,
+                                          device=device)
+                   if owned else True)
     try:
         world = dist.get_world_size() if distributed else 1
         rank = dist.get_rank() if distributed else 0
-        if args.multi_pod:
-            raise NotImplementedError(
-                f"--multi-pod over {world} process(es): {UNSUPPORTED}")
-        mesh = make_local_mesh(model=1, data=world, device_type=device.type)
+        mesh = layout_mesh(world, args.model_axis, args.multi_pod,
+                           device.type)
         set_active_mesh(mesh)
         if rank == 0:
             log("launch", f"arch={cfg.name} mesh={mesh_dims(mesh)} "
@@ -124,23 +135,32 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         hp = TrainHParams(
             optimizer=AdamWConfig(lr=args.lr, warmup_steps=10, clip_norm=1.0),
             n_microbatches=args.n_micro, remat=not args.smoke)
-        params = init_model(torch.Generator(device=device).manual_seed(0),
-                            cfg, torch.float32, device)
+        whole = init_model(torch.Generator(device=device).manual_seed(0),
+                           cfg, torch.float32, device)
+        layout = Layout(mesh, param_specs(mesh, cfg, whole))
+        if cfg.moe is not None and args.batch % layout.row_groups:
+            raise ValueError(
+                f"an MoE batch of {args.batch} rows must split evenly over "
+                f"{layout.row_groups} row groups: the dispatch gathers them")
+        params = shard_params(whole, mesh, layout.specs)
+        del whole
         opt = init_adamw(params)
-        step = make_train_step(
-            cfg, hp, loss_fn=lm_loss,
-            grad_reduce=_allreduce_mean(world) if world > 1 else None)
+        step = make_train_step(cfg, hp, loss_fn=lm_loss, layout=layout)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
 
         rng = np.random.default_rng(0)
         history: List[Dict[str, float]] = []
+        seconds: List[float] = []
         t0 = time.time()
         for i in range(args.steps):
+            t_step = time.perf_counter()
             tokens = torch.from_numpy(rng.integers(
                 0, cfg.vocab_size, (args.batch, args.seq)).astype(np.int64))
-            batch = {"tokens": tokens}
-            if world > 1:
+            batch = {"tokens": tokens.to(device)}
+            if layout.row_groups > 1:
                 batch = _local_rows(batch, mesh)
-            batch = {k: v.to(device) for k, v in batch.items()}
             params, opt, metrics = step(params, opt, batch)
             loss = metrics["loss"].detach().reshape(1).float()
             if world > 1:
@@ -148,32 +168,40 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
                 loss /= world
             history.append({"loss": float(loss),
                             "grad_norm": float(metrics["grad_norm"])})
+            seconds.append(time.perf_counter() - t_step)
             if rank == 0 and (i % 10 == 0 or i == args.steps - 1):
                 log("train", f"step {i}", loss=f"{history[-1]['loss']:.4f}",
                     gnorm=f"{history[-1]['grad_norm']:.3f}")
+        peak = None
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+            peak = torch.cuda.max_memory_allocated(device)
         tokens_done = args.steps * args.batch * args.seq
         if rank == 0:
             log("done", f"{tokens_done / (time.time() - t0):.0f} tok/s")
-            if args.checkpoint:
-                save_checkpoint(args.checkpoint,
-                                {"params": params, "opt": opt},
-                                step=args.steps,
+        if args.checkpoint:
+            tree = {"params": layout.full(params, to_cpu=True),
+                    "opt": AdamWState(opt.step,
+                                      layout.full(opt.mu, to_cpu=True),
+                                      layout.full(opt.nu, to_cpu=True))}
+            if rank == 0:
+                save_checkpoint(args.checkpoint, tree, step=args.steps,
                                 metadata={"arch": cfg.name})
                 log("ckpt", f"saved to {args.checkpoint}")
+            del tree
         return TrainRun(params, opt, history, mesh_dims(mesh),
-                        type(mesh).__name__)
+                        type(mesh).__name__, layout, seconds, peak)
     finally:
         set_active_mesh(None)
-        if distributed:
+        if owned and distributed:
             dist.destroy_process_group()
 
 
 def _local_rows(batch: Dict[str, torch.Tensor], mesh
                 ) -> Dict[str, torch.Tensor]:
     """This rank's rows of a batch every rank holds whole, by
-    ``array_batch_specs`` on the mesh (DTensor's even split)."""
+    ``array_batch_specs`` on the mesh (DTensor's even split, pod-major
+    over ("pod", "data"); the model ranks take the same rows)."""
     from torch.distributed.tensor import distribute_tensor
 
     specs = array_batch_specs(mesh, batch)

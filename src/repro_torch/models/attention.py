@@ -128,7 +128,17 @@ def attention(
     window: int = 0,
 ) -> torch.Tensor:
     """Projections, rope on q and k, flash attention (the kernel on the
-    card, its plain version on the CPU), output projection."""
+    card, its plain version on the CPU), output projection.
+
+    A dict a layout split over its model axis (``train.parallel``)
+    carries a ``"tp"`` marker and this rank's heads: the query heads'
+    columns of ``wq`` and rows of ``wo``, the KV heads they read.  The
+    input enters through the marker's "f", the kernel runs on the local
+    heads, and the row-parallel output's partial sums leave through its
+    "g"."""
+    tp = p.get("tp")
+    if tp is not None:
+        x = tp.enter(x)
     B, S, _ = x.shape
     q, k, v = qkv_project(p, cfg, x)
     if positions is None:
@@ -137,7 +147,8 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y if tp is None else tp.exit(y)
 
 
 def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,

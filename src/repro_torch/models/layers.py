@@ -115,8 +115,16 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, device, *,
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU.  Split over a layout's model axis (a ``"tp"`` marker in
+    ``p``, ``train.parallel``): this rank's d_ff columns of ``gate`` and
+    ``up`` and rows of ``down``, the input entering through "f" and the
+    partial sums leaving through "g"."""
+    tp = p.get("tp")
+    if tp is not None:
+        x = tp.enter(x)
     h = F.silu(x @ p["gate"]) * (x @ p["up"])
-    return h @ p["down"]
+    y = h @ p["down"]
+    return y if tp is None else tp.exit(y)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,6 @@ Paged serving of the dense and MoE kinds runs through
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -162,10 +161,14 @@ def layer_params(layers: Params, i: int) -> Params:
 def unstack_layers(layers: Params):
     """The per-layer param dicts of a stacked tree, as views made by one
     ``unbind`` per tensor: autograd then stacks each gradient once, where
-    indexing layer by layer would add a full-size zero tensor per layer."""
-    parts = tree_map(lambda t: t.unbind(0), layers)
-    n = len(tree_leaves(parts)[0])
-    return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
+    indexing layer by layer would add a full-size zero tensor per layer.
+    A leaf that is not a tensor (a layout's tensor-parallel marker) goes
+    to every layer as it is."""
+    parts = tree_map(lambda t: t.unbind(0) if isinstance(t, torch.Tensor)
+                     else t, layers)
+    n = next(len(p) for p in tree_leaves(parts) if isinstance(p, tuple))
+    return [tree_map(lambda ts, i=i: ts[i] if isinstance(ts, tuple) else ts,
+                     parts) for i in range(n)]
 
 
 # ===========================================================================
@@ -257,8 +260,21 @@ def _checkpointed(body, x, remat: bool):
     return checkpoint(body, x, use_reentrant=False) if remat else body(x)
 
 
+def _whole(tree, *path, tp: bool = False):
+    """The gather of one rank holding every weight whole: the identity."""
+    return tree
+
+
+def _unembed(params: Params, gather, x):
+    """The output projection (the tied embedding when there is no
+    ``unembed``), its one weight gathered."""
+    name = "unembed" if "unembed" in params["embed"] else "tokens"
+    return unembed({name: gather(params["embed"][name], "embed", name)}, x)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            extra=None, *, remat: bool = False, return_hidden: bool = False):
+            extra=None, *, remat: bool = False, return_hidden: bool = False,
+            gather=None):
     """Returns (logits (B, S, padded_vocab), aux_loss scalar), plus the
     final hidden state when ``return_hidden``.
 
@@ -267,13 +283,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cast to the activations' type.  remat=True checkpoints each layer
     (each group of a hybrid or VLM stack, as JAX does; activations
     recomputed in the backward pass), and each encoder layer.  An MoE
-    stack sums each layer's aux loss, as JAX's scan carries it.  The JAX
-    ``act_spec`` (sequence-parallel sharding) has no counterpart on one
-    card.
+    stack sums each layer's aux loss, as JAX's scan carries it.
+
+    ``gather(tree, *path, tp=False)`` maps the params at ``path`` to what
+    the compute reads (``train.parallel.Layout.gather`` over shards; the
+    identity by default).  Each layer's runs inside its checkpointed
+    body, so remat gathers again in the backward; ``tp=True`` (the
+    decoder's layers and the hybrid's shared block) lets a layout split
+    self-attention and MLP over its model axis.  The JAX ``act_spec``
+    (a sequence-parallel constraint its dry-run sets and its launcher
+    does not) has no counterpart.
     """
     if cfg.kind not in _LAYER_INIT:
         raise ValueError(cfg.kind)
-    x = embed(params["embed"], tokens)
+    g = gather or _whole
+    x = embed({"tokens": g(params["embed"]["tokens"], "embed", "tokens")},
+              tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     src, cross = None, None
     if cfg.kind == VLM:
@@ -285,31 +310,40 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         assert extra is not None and "frame_embeds" in extra, \
             "encdec needs frame_embeds"
         src = encode(params, cfg, extra["frame_embeds"].to(x.dtype),
-                     remat=remat)
+                     remat=remat, gather=gather)
     for i, lp in enumerate(unstack_layers(params["layers"])):
-        body = functools.partial(_layer_fwd, lp, cfg,
-                                 window=cfg.sliding_window,
-                                 shared=params.get("shared_attn"),
-                                 cross=cross[i] if cross else None, src=src)
+        def body(x, lp=lp, cp=cross[i] if cross else None):
+            shared = (g(params["shared_attn"], "shared_attn", tp=True)
+                      if "shared_attn" in params else None)
+            return _layer_fwd(g(lp, "layers", tp=True), cfg, x,
+                              window=cfg.sliding_window, shared=shared,
+                              cross=None if cp is None
+                              else g(cp, "cross_layers"), src=src)
+
         x, a = _checkpointed(body, x, remat)
         if a is not None:
             aux = aux + a
-    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    x = rmsnorm(g(params["ln_f"], "ln_f"), x, cfg.norm_eps)
     if return_hidden:
-        return unembed(params["embed"], x), aux, x
-    return unembed(params["embed"], x), aux
+        return _unembed(params, g, x), aux, x
+    return _unembed(params, g, x), aux
 
 
 def encode(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor, *,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, gather=None) -> torch.Tensor:
     """Whisper-style encoder over precomputed (stub-frontend) frames:
     bidirectional self-attention layers (``kops.flash_attention`` with
-    ``causal=False``), then ``ln_enc``."""
+    ``causal=False``), then ``ln_enc``; ``gather`` as :func:`forward`'s
+    (the encoder's layers are gathered whole)."""
+    g = gather or _whole
     x = frame_embeds
     for lp in unstack_layers(params["enc_layers"]):
-        x = _checkpointed(functools.partial(_attn_layer_fwd, lp, cfg,
-                                            causal=False), x, remat)
-    return rmsnorm(params["ln_enc"], x, cfg.norm_eps)
+        def body(x, lp=lp):
+            return _attn_layer_fwd(g(lp, "enc_layers"), cfg, x,
+                                   causal=False)
+
+        x = _checkpointed(body, x, remat)
+    return rmsnorm(g(params["ln_enc"], "ln_enc"), x, cfg.norm_eps)
 
 
 # ===========================================================================

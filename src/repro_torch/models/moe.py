@@ -4,7 +4,8 @@ and the exact top-k combine of the serve tier.
 Counterpart of the JAX package's ``models/moe.py``, with its signatures
 minus ``use_kernel``: the route follows the device, as for the other
 kernels (:mod:`repro_torch.kernels.ops`).  The JAX sharding hints have no
-counterpart on one card.
+counterpart: across ranks a layout gathers the experts whole and the
+block's rows (``train.parallel``).
 
 - :func:`moe_block` (training and recompute) keeps JAX's capacity
   dispatch and aux loss.  Its three expert products are batched matmuls,
@@ -88,7 +89,16 @@ def _aux_loss(cfg: ModelConfig, probs, expert_idx) -> torch.Tensor:
 
 def moe_block(p: Params, cfg: ModelConfig,
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (output (B, S, d), aux load-balance loss scalar)."""
+    """x (B, S, d) -> (output (B, S, d), aux load-balance loss scalar).
+
+    Over a batch split across ranks (a ``"rows"`` marker in ``p``,
+    ``train.parallel``) the dispatch and the aux loss run on the whole
+    batch, gathered from the ranks, and each rank keeps its rows."""
+    rows = p.get("rows")
+    if rows is not None:
+        y, aux = moe_block({k: v for k, v in p.items() if k != "rows"},
+                           cfg, rows.gather(x))
+        return rows.local(y), aux
     m = cfg.moe
     B, S, d = x.shape
     T = B * S

@@ -10,7 +10,7 @@ the same tensors: on one card that saves three f32 copies of the model
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,12 +86,16 @@ def adamw_update(
     params: Params,
     grads: Params,
     state: AdamWState,
+    grad_norm: Optional[Callable[[Params], torch.Tensor]] = None,
 ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: global-norm clip first, bias-corrected f32 moments,
     decoupled weight decay on tensors of ndim >= 2 only, the update cast
     back to each param's type.  ``params``, ``state.mu`` and ``state.nu``
-    are updated in place; ``grads`` is left as it is."""
-    gnorm = global_norm(grads)
+    are updated in place; ``grads`` is left as it is.  Over shards
+    (``train.parallel``) the three trees hold this rank's shards, and
+    ``grad_norm`` gives the whole gradient's norm (``Layout.grad_norm``:
+    each shard counted once over the ranks)."""
+    gnorm = (grad_norm or global_norm)(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm) if cfg.clip_norm > 0 else None
     step = state.step + 1
     lr = schedule_lr(cfg, state.step)

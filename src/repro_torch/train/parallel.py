@@ -1,0 +1,519 @@
+"""Parameter layouts across ranks: FSDP over "data", tensor parallelism
+over "model", replicas over "pod".
+
+JAX's launcher only places each parameter by ``param_specs``
+(``NamedSharding`` on every leaf, ``train/sharding_rules.py``) and GSPMD
+inserts the collectives, so its step equals the one-device step.  The
+port has no GSPMD: this module does the collectives by hand, with the
+same result.
+
+  * :func:`shard_params` keeps each rank's shard of every leaf: the
+    whole leaf narrowed, dimension by dimension, to this rank's block
+    along each mesh axis its spec names (``shard_shape``).  The AdamW
+    moments are made from the shards and so mirror them (ZeRO).
+  * :class:`Layout` holds the mesh, the specs and a process group an
+    axis, and gives the train step its three collectives:
+
+    - :meth:`Layout.gather` all-gathers a layer's leaves before use,
+      inside the layer's checkpointed body (``models.model.forward``),
+      so remat gathers again in the backward and the gathered layer is
+      freed after use.  Its backward reduce-scatters the gradient into
+      the shard (summed over "data"; averaged over "model", whose ranks
+      computed the same gradient).  With ``tp=True`` the self-attention
+      and MLP of a layer whose rules split heads or d_ff over "model"
+      stay split: ``wq``, ``wk``, ``wv``, ``gate`` and ``up`` column-
+      parallel, ``wo`` and ``down`` row-parallel, Megatron's conjugate
+      pair around them (:class:`ModelParallel`).  Every other leaf is
+      gathered whole over both axes and computed as on one rank.
+    - :meth:`Layout.reduce` finishes the gradient: an all-reduce over
+      "data" for the leaves stored whole there, over "pod" for every
+      leaf (HSDP: weight gathers stay in a pod), and over "model" for
+      the leaves stored whole there; then the mean over the row groups.
+    - :meth:`Layout.grad_norm` sums each leaf's squares once over its
+      shards (a replicated leaf on one rank of its replicas) and
+      all-reduces the sum.
+
+At a mesh whose axes all have size 1 every method is the identity and
+the step is ``make_train_step``'s bit for bit.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.utils.sharding import (
+    DATA,
+    MODEL,
+    POD,
+    PartitionSpec,
+    map_specs,
+    mesh_shape,
+    spec_axes,
+)
+from repro_torch.utils.treeutil import (
+    global_norm,
+    pytree_flatten,
+    pytree_unflatten,
+    tree_leaves,
+    tree_unflatten,
+)
+
+# leaves of at most this many bytes share one flat all-reduce
+BUCKET_BYTES = 64 << 20
+
+
+# ---------------------------------------------------------------------------
+# Heads of a tensor-parallel rank
+# ---------------------------------------------------------------------------
+def local_heads(H: int, KV: int, size: int) -> Tuple[int, int]:
+    """(query heads, KV heads) the flash kernel sees on model rank 0 of a
+    layout that splits ``H`` query heads over ``size`` ranks: the rank's
+    heads and the KV heads they read (every rank's, when
+    :func:`tp_heads` accepts the split); the heads whole when ``size``
+    does not divide them (the rules keep them whole)."""
+    if size <= 1 or H % size or KV <= 0 or H % KV:
+        return H, KV
+    h_loc, group = H // size, H // KV
+    return h_loc, (h_loc - 1) // group + 1
+
+
+def tp_heads(H: int, KV: int, size: int, rank: int
+             ) -> Tuple[int, int, int, int]:
+    """(h_lo, h_hi, kv_lo, kv_hi): the query heads model rank ``rank`` of
+    ``size`` computes and the KV heads they read.  Query head h reads KV
+    head ``h // (H / KV)``, its *global* index: when ``KV % size != 0``
+    the rules keep ``wk``/``wv`` whole and each rank slices the heads
+    its queries map to.  The flash kernel maps a local query head j to
+    local KV head ``j // (H_loc / KV_loc)``; that equals the global
+    mapping only when the local heads cover whole groups or lie inside
+    one (``H_loc % G == 0`` or ``G % H_loc == 0``, G = H / KV).  Any
+    other split raises (flowlint pass 3 reports it as K106)."""
+    if H % size or H % KV:
+        raise ValueError(f"{H} query heads over {size} model ranks with "
+                         f"{KV} KV heads")
+    h_loc, kv_loc = local_heads(H, KV, size)
+    group = H // KV
+    if h_loc % group and group % h_loc:
+        raise ValueError(
+            f"{h_loc} query heads a rank split groups of {group}: the "
+            "flash kernel's local GQA map would read the wrong KV heads")
+    h_lo = rank * h_loc
+    return h_lo, h_lo + h_loc, h_lo // group, h_lo // group + kv_loc
+
+
+# ---------------------------------------------------------------------------
+# Collectives with their conjugates as autograd functions
+# ---------------------------------------------------------------------------
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _contiguous_copy(x: torch.Tensor) -> torch.Tensor:
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of ``x`` from every rank of ``group``, concatenated
+    along ``dim`` in group-rank order."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    x = x.movedim(dim, 0).contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+    else:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        out = torch.cat(parts)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, this rank's block along ``dim``
+    (gloo has no reduce-scatter: it all-reduces and takes the block)."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    x = _contiguous_copy(x.movedim(dim, 0))
+    k = x.shape[0] // n
+    if dist.get_backend(group) == "nccl":
+        out = x.new_empty((k,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+    else:
+        dist.all_reduce(x, group=group)
+        r = dist.get_rank(group)
+        out = x[r * k:(r + 1) * k]
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; reduce-scatter (times
+    ``scale``) backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, scale):
+        ctx.dim, ctx.group, ctx.scale = dim, group, scale
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = reduce_scatter(grad, ctx.dim, ctx.group)
+        if ctx.scale != 1.0:
+            g = g * ctx.scale
+        return g, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's "f": the identity forward, an all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = _contiguous_copy(grad)
+        _dist().all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Exit(torch.autograd.Function):
+    """Megatron's "g": an all-reduce forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = _contiguous_copy(x)
+        _dist().all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+@dataclass(frozen=True)
+class ModelParallel:
+    """The marker a tensor-parallel attention or MLP dict carries under
+    the key ``"tp"``: its input enters through :meth:`enter` (a partial
+    gradient on each model rank, summed backward) and its row-parallel
+    output leaves through :meth:`exit` (partial sums, summed forward)."""
+    group: Any
+    rank: int
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self.group)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        return _Exit.apply(y, self.group)
+
+
+@dataclass(frozen=True)
+class RowParallel:
+    """The marker an MoE dict carries under the key ``"rows"`` when the
+    batch is split over row groups: the capacity dispatch and the aux
+    loss read the whole batch (JAX's MoE is one computation over the
+    global batch), so the block's input is all-gathered over "data" and
+    then "pod" (pod-major, as ``array_batch_specs`` splits the rows) and
+    each rank keeps its rows of the output."""
+    groups: Tuple[Any, ...]  # the data group, then the pod group
+    index: int
+    count: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        for group in self.groups:
+            x = _AllGather.apply(x, 0, group, 1.0)
+        return x
+
+    def local(self, y: torch.Tensor) -> torch.Tensor:
+        b = y.shape[0] // self.count
+        return y[self.index * b:(self.index + 1) * b]
+
+
+# ---------------------------------------------------------------------------
+# Shards
+# ---------------------------------------------------------------------------
+def _flat_specs(specs: Any) -> List[PartitionSpec]:
+    out: List[PartitionSpec] = []
+    map_specs(out.append, specs)
+    return out
+
+
+def _spec_at(spec: PartitionSpec, ndim: int) -> Tuple[Tuple[str, ...], ...]:
+    """The axes of the last ``ndim`` dimensions of ``spec``: a stacked
+    leaf's spec on one layer's slice (the stacked dims are never
+    sharded); a spec shorter than the tensor replicates the rest."""
+    axes = spec_axes(spec) + ((),) * max(ndim - len(spec), 0)
+    lead = len(axes) - ndim
+    assert not any(axes[:lead]), (spec, ndim)
+    return axes[lead:]
+
+
+def _coords(mesh: Any) -> Dict[str, int]:
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return {a: 0 for a in mesh_shape(mesh)}
+    return dict(zip(names, mesh.get_coordinate()))
+
+
+def _axis_of(axes: Tuple[str, ...]) -> str:
+    assert len(axes) == 1, f"one mesh axis a dimension, got {axes}"
+    return axes[0]
+
+
+def shard_params(params: Any, mesh: Any, specs: Any) -> Any:
+    """Each rank's shard of every leaf of ``params`` (the same whole
+    values on every rank) by ``specs``: a contiguous copy of this rank's
+    block along every named axis, the leaf itself where no axis of size
+    above 1 splits it."""
+    sizes, coords = mesh_shape(mesh), _coords(mesh)
+    leaves, treedef = pytree_flatten(params)
+    out = []
+    for x, spec in zip(leaves, _flat_specs(specs)):
+        y = x
+        for d, axes in enumerate(spec_axes(spec)):
+            if not axes or sizes[_axis_of(axes)] == 1:
+                continue
+            a = _axis_of(axes)
+            k = x.shape[d] // sizes[a]
+            y = y.narrow(d, coords[a] * k, k)
+        out.append(y if y is x else y.clone())
+    return pytree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# The layout
+# ---------------------------------------------------------------------------
+@dataclass
+class Layout:
+    """A param tree's layout on a mesh: the mesh, the spec tree (from
+    ``param_specs``, for the whole leaves) and a process group for each
+    axis of size above 1."""
+    mesh: Any
+    specs: Any
+    sizes: Dict[str, int] = field(init=False)
+    coords: Dict[str, int] = field(init=False)
+    groups: Dict[str, Any] = field(init=False)
+
+    def __post_init__(self):
+        self.sizes = mesh_shape(self.mesh)
+        self.coords = _coords(self.mesh)
+        self.groups = {a: self.mesh.get_group(a)
+                       for a, n in self.sizes.items() if n > 1}
+
+    # -- sizes ---------------------------------------------------------------
+    @property
+    def model(self) -> int:
+        return self.sizes.get(MODEL, 1)
+
+    @property
+    def row_groups(self) -> int:
+        """The number of distinct batch shards: data x pod."""
+        return self.sizes.get(DATA, 1) * self.sizes.get(POD, 1)
+
+    # -- gather --------------------------------------------------------------
+    def _spec(self, path: Tuple[str, ...]):
+        s = self.specs
+        for k in path:
+            s = s[k]
+        return s
+
+    def _whole(self, x: torch.Tensor, spec: PartitionSpec,
+               keep: Tuple[str, ...] = ()) -> torch.Tensor:
+        """``x`` gathered along every axis of its spec but ``keep``: a
+        model gather's backward averages the model ranks' copies."""
+        for d, axes in enumerate(_spec_at(spec, x.dim())):
+            if not axes:
+                continue
+            a = _axis_of(axes)
+            if a in keep or a not in self.groups:
+                continue
+            scale = 1.0 / self.sizes[a] if a == MODEL else 1.0
+            x = _AllGather.apply(x, d, self.groups[a], scale)
+        return x
+
+    def _whole_tree(self, tree: Any, specs: Any) -> Any:
+        if isinstance(tree, dict):
+            return {k: self._whole_tree(v, specs[k]) for k, v in tree.items()}
+        return self._whole(tree, specs)
+
+    def gather(self, tree: Any, *path: str, tp: bool = False) -> Any:
+        """``tree`` (the params at ``path``: a leaf, a layer's dict, a
+        stacked group's) as its compute reads it.  ``tp`` asks for the
+        tensor-parallel split of its "attn" and "mlp" dicts; an "moe"
+        dict carries the row groups' marker."""
+        if not self.groups:
+            return tree
+        specs = self._spec(path)
+        if not isinstance(tree, dict):
+            return self._whole(tree, specs)
+        split = tp and self.model > 1
+        out = {}
+        for k, v in tree.items():
+            if split and k == "attn" and self._splits(specs[k]["wq"], -2):
+                out[k] = self._tp_attention(v, specs[k])
+            elif split and k == "mlp" and self._splits(specs[k]["gate"],
+                                                       -1):
+                out[k] = self._tp_mlp(v, specs[k])
+            else:
+                out[k] = self._whole_tree(v, specs[k])
+            if k == "moe" and self.row_groups > 1:
+                out[k]["rows"] = self._rows()
+        return out
+
+    def _rows(self) -> RowParallel:
+        groups = tuple(self.groups[a] for a in (DATA, POD)
+                       if a in self.groups)
+        index = (self.coords.get(POD, 0) * self.sizes.get(DATA, 1)
+                 + self.coords.get(DATA, 0))
+        return RowParallel(groups, index, self.row_groups)
+
+    def _splits(self, spec: PartitionSpec, dim: int) -> bool:
+        axes = spec_axes(spec)
+        return len(axes) >= -dim and MODEL in axes[dim]
+
+    def _marker(self) -> ModelParallel:
+        return ModelParallel(self.groups[MODEL], self.coords[MODEL])
+
+    def _tp_attention(self, p: Dict[str, Any], s: Dict[str, Any]):
+        """A self-attention dict on this model rank: local query heads
+        (``wq``, ``wo`` as stored), the KV heads they read (``wk``,
+        ``wv`` as stored when split, else sliced from the whole), the
+        biases sliced to those heads and the q/k norms whole; a leaf
+        stored whole over "model" enters through "f", since each rank
+        adds only its heads' part to its gradient."""
+        tp = self._marker()
+        keep = (MODEL,)
+        H_loc = p["wq"].shape[-2]
+        kv_split = self._splits(s["wk"], -2)
+        KV = p["wk"].shape[-2] * (self.model if kv_split else 1)
+        h_lo, h_hi, kv_lo, kv_hi = tp_heads(H_loc * self.model, KV,
+                                            self.model, tp.rank)
+
+        def heads(name, lo, hi):
+            x = self._whole(p[name], s[name], keep)
+            return tp.enter(x)[..., lo:hi, :]
+
+        out: Dict[str, Any] = {
+            "wq": self._whole(p["wq"], s["wq"], keep),
+            "wo": self._whole(p["wo"], s["wo"], keep)}
+        for name in ("wk", "wv"):
+            out[name] = (self._whole(p[name], s[name], keep) if kv_split
+                         else heads(name, kv_lo, kv_hi))
+        if "bq" in p:
+            out["bq"] = heads("bq", h_lo, h_hi)
+            out["bk"] = heads("bk", kv_lo, kv_hi)
+            out["bv"] = heads("bv", kv_lo, kv_hi)
+        for name in ("q_norm", "k_norm"):
+            if name in p:
+                out[name] = {"scale": tp.enter(self._whole(
+                    p[name]["scale"], s[name]["scale"]))}
+        out["tp"] = tp
+        return out
+
+    def _tp_mlp(self, p: Dict[str, Any], s: Dict[str, Any]):
+        """A SwiGLU MLP on this model rank: its d_ff columns of ``gate``
+        and ``up``, its rows of ``down``."""
+        out = {k: self._whole(p[k], s[k], (MODEL,)) for k in p}
+        out["tp"] = self._marker()
+        return out
+
+    # -- gradients -------------------------------------------------------------
+    def reduce(self, grads: Any) -> Any:
+        """The step's gradient from each rank's (after the gathers'
+        reduce-scatters): summed over the axes a leaf is stored whole
+        on, averaged over the model ranks' copies and over the row
+        groups, in f32, each leaf cast back to its type."""
+        if not self.groups:
+            return grads
+        leaves = tree_leaves(grads)
+        work = [g.float().contiguous() for g in leaves]
+        axes = [set(a for ax in spec_axes(s) for a in ax)
+                for s in _flat_specs(self.specs)]
+        for a in (DATA, POD, MODEL):
+            if a in self.groups:
+                idx = [i for i, named in enumerate(axes) if a not in named]
+                _all_reduce_leaves(work, idx, self.groups[a])
+        out = []
+        for g, w, named in zip(leaves, work, axes):
+            n = self.row_groups * (self.model if MODEL not in named else 1)
+            out.append((w.div_(n) if n > 1 else w).to(g.dtype))
+        return tree_unflatten(grads, out)
+
+    def _counted(self) -> List[bool]:
+        """Whether this rank counts each leaf in a norm: the rank at
+        coordinate 0 of every axis the leaf is stored whole on."""
+        out = []
+        for s in _flat_specs(self.specs):
+            named = set(a for ax in spec_axes(s) for a in ax)
+            out.append(all(self.coords[a] == 0 for a in self.groups
+                           if a not in named))
+        return out
+
+    def grad_norm(self, grads: Any) -> torch.Tensor:
+        """The global norm of the whole gradient: each leaf's squares
+        summed once over its shards, the sum all-reduced."""
+        if not self.groups:
+            return global_norm(grads)
+
+        def reduce(total):
+            total = total.reshape(1).clone()
+            _dist().all_reduce(total)
+            return total[0]
+
+        return global_norm(grads, counted=self._counted(), reduce=reduce)
+
+    # -- whole leaves ------------------------------------------------------------
+    @torch.no_grad()
+    def full(self, tree: Any, to_cpu: bool = False) -> Any:
+        """``tree`` (laid out as the params: the params, or an AdamW
+        moment) with every leaf whole on every rank, leaf by leaf; on
+        the host when ``to_cpu``."""
+        leaves, treedef = pytree_flatten(tree)
+        out = []
+        for x, spec in zip(leaves, _flat_specs(self.specs)):
+            for d, axes in enumerate(spec_axes(spec)):
+                if axes and _axis_of(axes) in self.groups:
+                    x = all_gather(x, d, self.groups[_axis_of(axes)])
+            out.append(x.cpu() if to_cpu else x.contiguous())
+        return pytree_unflatten(treedef, out)
+
+
+def _all_reduce_leaves(leaves: List[torch.Tensor], idx: List[int],
+                       group) -> None:
+    """Sum the contiguous f32 ``leaves[i]`` for ``i`` in ``idx`` over
+    ``group``: small ones through flat buckets (the list's entries
+    replaced by views of the bucket), a large one in place."""
+    dist = _dist()
+    bucket: List[int] = []
+    size = 0
+
+    def flush():
+        nonlocal bucket, size
+        if not bucket:
+            return
+        flat = torch.cat([leaves[i].reshape(-1) for i in bucket])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for i in bucket:
+            n = leaves[i].numel()
+            leaves[i] = flat[off:off + n].view(leaves[i].shape)
+            off += n
+        bucket, size = [], 0
+
+    for i in idx:
+        nbytes = leaves[i].numel() * 4
+        if nbytes > BUCKET_BYTES:
+            dist.all_reduce(leaves[i], group=group)
+            continue
+        if size + nbytes > BUCKET_BYTES:
+            flush()
+        bucket.append(i)
+        size += nbytes
+    flush()
+
+
+__all__ = ["Layout", "ModelParallel", "RowParallel", "all_gather",
+           "local_heads", "reduce_scatter", "shard_params", "tp_heads"]

@@ -13,8 +13,9 @@ Every rule goes through ``spec_for``, which drops any axis that does not
 divide (24 heads on a 16-way axis -> replicated heads, d_ff still
 sharded).  A spec is a ``PartitionSpec`` (``utils.sharding``); ``P()``
 is replicated.
-The launcher (``launch/train.py``) runs the data axis today; the dry-run
-(``launch/dryrun.py``) sizes every layout the rules give.
+The launcher (``launch/train.py``) lays its params and moments out by
+them (``train/parallel.py``); the dry-run (``launch/dryrun.py``) sizes
+every layout the rules give.
 """
 from __future__ import annotations
 

@@ -5,10 +5,12 @@ Counterpart of the JAX package's ``train/trainer.py``:
 with a token-level loss) and ``make_prefill_step`` the inference worker's
 logprob recompute, ``make_serve_step`` one decode step against a standing
 cache.  Of the JAX ``TrainHParams``, ``act_spec`` and ``grad_specs``
-(sharding constraints inside the jitted step) have no counterpart: the
-launcher keeps the weights whole on every rank and reduces the
-gradients through ``make_train_step``'s ``grad_reduce``; ``compute_dtype``
-and ``value_coef`` are read by nothing in either package.  Every arch kind
+(sharding constraints inside the jitted step, for GSPMD) have no
+counterpart: across ranks ``make_train_step`` takes a
+``train.parallel.Layout``, whose gather the loss passes to ``forward``
+and whose reduce and norm finish the gradient of the local shards;
+``compute_dtype`` and ``value_coef`` are read by nothing in either
+package.  Every arch kind
 runs here (``forward`` carries what is kind-specific); a batch's
 ``image_embeds`` (VLM) or ``frame_embeds`` (encoder-decoder) go to
 ``forward`` as its ``extra``.
@@ -59,7 +61,8 @@ class TrainHParams(NamedTuple):
 # RL policy loss (token-level, DAPO-style averaging)
 # ---------------------------------------------------------------------------
 def policy_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
-                batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                batch: Batch, gather=None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Clipped-surrogate policy gradient on response tokens.
 
     batch:
@@ -70,9 +73,10 @@ def policy_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
       loss_mask     (B, S) f32 — 1 on response tokens
       ref_logprobs  (B, S) f32 — optional, for the k3 KL term
       (+ image_embeds / frame_embeds for vlm / encdec archs)
+    ``gather`` goes to ``forward`` (a layout's, over shards).
     """
     logits, aux = M.forward(params, cfg, batch["tokens"], _extra(batch),
-                            remat=hp.remat)
+                            remat=hp.remat, gather=gather)
     # logits[t] predicts tokens[t+1]
     lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
                         cfg.vocab_size)  # (B, S-1)
@@ -122,9 +126,11 @@ def policy_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
 
 
 def lm_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
-            batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            batch: Batch, gather=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain next-token cross-entropy (supervised warm-up and tests)."""
-    logits, aux = M.forward(params, cfg, batch["tokens"], remat=hp.remat)
+    logits, aux = M.forward(params, cfg, batch["tokens"], remat=hp.remat,
+                            gather=gather)
     lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
                         cfg.vocab_size)
     mask = (batch["loss_mask"][:, 1:] if "loss_mask" in batch
@@ -138,16 +144,21 @@ def lm_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
 # Step builders
 # ---------------------------------------------------------------------------
 def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss,
-                    grad_reduce=None):
+                    layout=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     Gradient accumulation: the batch is split into n_microbatches chunks
     run one after the other (grads averaged in ``hp.accum_dtype``, metrics
     of the last chunk), bounding activation memory at one microbatch.
     The params and moments are updated in place (see ``adamw_update``).
-    ``grad_reduce`` maps the step's gradients before the update: the
-    launcher's all-reduce over data-parallel ranks.
+    With a ``layout`` (``train.parallel.Layout``: mesh, specs, gather,
+    reduce) the params and moments are this rank's shards and the batch
+    its rows: the loss gathers each layer through ``layout.gather``, the
+    microbatches accumulate in the local shards, ``layout.reduce``
+    finishes the gradient and ``layout.grad_norm`` gives the clip its
+    norm, so the step equals the one-rank step on the whole batch.
     """
+    gather = layout.gather if layout is not None else None
 
     def grads_of(params, mb: Batch):
         live = tree_map(
@@ -155,7 +166,10 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss,
             params)
         leaves = tree_leaves(live)
         with torch.enable_grad():
-            loss, metrics = loss_fn(cfg, hp, live, mb)
+            if gather is None:
+                loss, metrics = loss_fn(cfg, hp, live, mb)
+            else:
+                loss, metrics = loss_fn(cfg, hp, live, mb, gather=gather)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -177,10 +191,12 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss,
                          grads, g)
                 del g
             tree_map(lambda acc: acc.div_(nm), grads)
-        if grad_reduce is not None:
-            grads = grad_reduce(grads)
+        norm = None
+        if layout is not None:
+            grads = layout.reduce(grads)
+            norm = layout.grad_norm
         params, opt_state, opt_metrics = adamw_update(
-            hp.optimizer, params, grads, opt_state)
+            hp.optimizer, params, grads, opt_state, grad_norm=norm)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         return params, opt_state, metrics

@@ -38,10 +38,25 @@ def tree_unflatten(like: Dict, leaves: List[Any]) -> Dict:
     return tree_map(lambda _: next(it), like)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor)."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tree_leaves(tree)))
+def global_norm(tree, *, counted: Optional[List[bool]] = None,
+                reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor).
+
+    Over a tree of shards (``train.parallel``), ``counted`` (a bool a
+    leaf, in :func:`tree_leaves` order) keeps the leaves this rank
+    counts, so that each shard and each replicated leaf is counted once
+    over the ranks, and ``reduce`` sums the local sum over them."""
+    leaves = tree_leaves(tree)
+    if counted is not None:
+        leaves = [x for x, c in zip(leaves, counted) if c]
+    total = sum(x.float().square().sum() for x in leaves)
+    if not isinstance(total, torch.Tensor):  # no leaf counted here
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(tree)[0].device)
+    if reduce is not None:
+        total = reduce(total)
+    return torch.sqrt(total)
 
 
 def tree_paths(tree) -> Dict[str, Any]:

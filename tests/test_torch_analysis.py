@@ -478,18 +478,21 @@ def test_non_strict_controller_skips_lint():
 
 
 def test_kernel_pass_and_cross_card_moves_raise_naming_their_items():
-    """What the port still lacks raises, naming its ROADMAP item: the
-    pod axis and the sharded layouts at world size > 1 (item 14).  The
-    kernel pass (item 11b) now runs and lints the CUDA launches clean;
-    the rebind (item 12) has its own tests in test_torch_placement.py."""
+    """The kernel pass (item 11b) runs and lints the CUDA launches clean;
+    the rebind (item 12) has its own tests in test_torch_placement.py.
+    The pod axis and the sharded layouts (item 14) are no longer
+    missing: ``--multi-pod`` in one process raises only because one rank
+    cannot make a pod axis of 2, naming the mesh, not an item
+    (tests/test_torch_parallel.py runs it over four)."""
     assert ta.analyze(kernels=True) == []
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
 
     args = launch_train.parse_args(["--smoke", "--device", "cpu",
                                     "--multi-pod"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="pod 2") as err:
         launch_train.run(get_config("yi-9b").reduced(), args)
+    assert "item" not in str(err.value)
 
 
 # ---------------------------------------------------------------------------

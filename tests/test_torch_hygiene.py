@@ -20,7 +20,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCANNED = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "multicard_smoke.py"]
 
 
 def _banned(name: str) -> bool:

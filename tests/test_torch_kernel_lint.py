@@ -177,6 +177,50 @@ def test_k106_gqa_head_mismatch():
     assert "K106" in codes(fs)
 
 
+@pytest.mark.parametrize("model,local", [(2, (16, 2)), (4, (8, 1)),
+                                         (8, (4, 1))])
+def test_k3_at_yi_tensor_parallel_local_heads(model, local):
+    """K3's forward and backward on a model rank of yi-9b's 32 / 4 heads:
+    16 / 2, 8 / 1 and 4 / 1 (model 8: ``wk`` whole on "model", two
+    ranks a KV head), as the layout's ``tp_heads`` gives them, clean and
+    in the registry at the train shape."""
+    from repro_torch.train.parallel import tp_heads
+
+    invs = tk.tensor_parallel_flash_invocations(
+        "t", B=2, H=32, S=1024, D=128, KV=4, model=model)
+    fwd = invs[0]
+    assert fwd.launch == "flash_fwd_kernel" and fwd.grid == (16, local[0], 2)
+    assert fwd.operands[1].operand_shape == (2, local[1], 1024, 128)
+    assert [i.launch for i in invs][1:] == [
+        i.launch for i in tk.flash_bwd_invocations(
+            "t", B=2, H=local[0], S=1024, D=128, KV=local[1])]
+    assert all(tk.check_invocation(i) == [] for i in invs)
+    for r in range(model):
+        h_lo, h_hi, kv_lo, kv_hi = tp_heads(32, 4, model, r)
+        assert (h_hi - h_lo, kv_hi - kv_lo) == local
+    subjects = {i.subject for i in tk.default_invocations()}
+    assert (f"flash_attention/flash_fwd_kernel@train_4k/yi-9b@model{model}"
+            in subjects)
+
+
+def test_k106_when_a_layout_splits_a_kv_group():
+    """12 query heads over 4 KV heads (groups of 3) on 3 model ranks: 4
+    local heads span two groups, which the kernel's local map j // 2
+    would misread; every launch of the rank is K106 (and the layout
+    raises), where the whole heads are clean."""
+    from repro_torch.train.parallel import tp_heads
+
+    invs = tk.tensor_parallel_flash_invocations(
+        "t", B=2, H=12, S=64, D=64, KV=4, model=3)
+    for inv in invs:
+        assert codes(tk.check_invocation(inv)) == {"K106"}, inv.subject
+    assert all(tk.check_invocation(i) == []
+               for i in tk.tensor_parallel_flash_invocations(
+                   "t", B=2, H=12, S=64, D=64, KV=4, model=1))
+    with pytest.raises(ValueError):
+        tp_heads(12, 4, 3, 1)
+
+
 def test_k107_uncovered_kernel_entry():
     tf = tk.check_registry_coverage(
         [tk.flash_invocation("t", B=2, H=28, S=4096, D=128, KV=4)])

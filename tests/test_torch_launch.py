@@ -175,7 +175,9 @@ _REDUCE = textwrap.dedent("""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.cluster import maybe_init_distributed
-    from repro_torch.launch.train import _allreduce_mean
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.parallel import Layout
+    from repro_torch.utils.sharding import P
 
     assert maybe_init_distributed(device="cpu")
     r = dist.get_rank()
@@ -183,7 +185,9 @@ _REDUCE = textwrap.dedent("""
     parts = [{"w": torch.randn(3, 5, generator=g),
               "blk": {"b": torch.randn(4, generator=g).bfloat16()}}
              for _ in range(2)]
-    out = _allreduce_mean(2)(parts[r])
+    layout = Layout(make_local_mesh(model=1, data=2),
+                    {"w": P(), "blk": {"b": P()}})
+    out = layout.reduce(parts[r])
     want = (parts[0]["w"] + parts[1]["w"]) / 2
     assert torch.equal(out["w"], want), (out["w"], want)
     b = (parts[0]["blk"]["b"].float() + parts[1]["blk"]["b"].float()) / 2
@@ -195,9 +199,10 @@ _REDUCE = textwrap.dedent("""
 
 
 def test_gradient_all_reduce_is_the_mean_over_ranks(tmp_path):
-    """The launcher's gradient reduce gives every rank the mean of the
-    ranks' gradients, each leaf in its own type: one bucket, one
-    all-reduce, divided by the world size."""
+    """The launcher's gradient reduce (``Layout.reduce``) gives every rank
+    the mean of the ranks' gradients of a leaf stored whole over
+    "data", each leaf in its own type: one f32 bucket, one all-reduce,
+    divided by the data ranks."""
     runs = _ranks([sys.executable, "-c", _REDUCE], 2, tmp_path / "store",
                   tmp_path)
     for rc, text in runs:
