@@ -3300,6 +3300,30 @@ def lint_cases():
             fa.flash_attention_bwd(qt, kt, vt, o, lse_t, dt)
 
         cases.append((f"K3tp{model}", invs, fwd_bwd))
+    # K3 bidirectional on a model rank of whisper's encoder (f32 2 x 1500
+    # frames, 10 and 5 of its 20 heads of 64), forward and backward
+    (We, WKV, WD), frames = kc.WHISPER_ENCODER
+    for model in kc.SPLIT_MODEL_AXES:
+        invs = kc.tensor_parallel_flash_invocations(
+            "whisper-encoder-train", B=2, H=We, S=frames, D=WD, KV=WKV,
+            model=model, causal=False, sm_count=sms)
+        Hl, KVl = local_heads(We, WKV, model)
+        qt, kt, vt, dt = (rnd(2, h, frames, WD) for h in (Hl, KVl, KVl, Hl))
+
+        def enc_fwd_bwd(qt=qt, kt=kt, vt=vt, dt=dt):
+            o, lse_t = fa.flash_attention_bhsd(qt, kt, vt, causal=False)
+            fa.flash_attention_bwd(qt, kt, vt, o, lse_t, dt, causal=False)
+
+        cases.append((f"K3enc{model}", invs, enc_fwd_bwd))
+    # K6 and its backward on a model rank of mamba2's and zamba2's mixers
+    # (the f32 train microbatch, 2 x 1024): 16 / 8 and 40 / 20 heads
+    for model in kc.SPLIT_MODEL_AXES:
+        for arch, (Hs, Ps, N) in kc.SSM_TP_HEADS.items():
+            invs = kc.tensor_parallel_ssd_invocations(
+                f"{arch}-train", B=2, L=1024, H=Hs, P=Ps, N=N, chunk=128,
+                model=model)
+            cases.append((f"K6tp{model}-{arch}", invs,
+                          ssd_fwd_bwd_call(g, 2, 1024, (Hs // model, Ps, N))))
     # K4, K5: granite-moe's experts, bf16 (prefill capacity, decode batch)
     E, k, d, f = GRANITE_MOE
     buf, w = rnd(E, 64, d, dtype=bf), rnd(E, d, f, dtype=bf)
@@ -3392,13 +3416,44 @@ def check_lint(so) -> None:
             for inv in invs) + ": as the profiler recorded")
 
 
-def check_flash_tp() -> None:
-    """K3 forward and backward at the local heads of a tensor-parallel
-    rank of yi-9b's f32 train step (model axis 2: 16 / 2 heads, 4: 8 /
-    1; B 2, S 1024) against their plain versions, at ``flash_case``'s
-    tolerances."""
+def ssd_fwd_bwd_call(g, B: int, L: int, heads, chunk: int = 128):
+    """A call of K6's forward (saving the chunk states) and its backward
+    on random f32 inputs at ``heads`` = (H, P, N), in the kernels' chunked
+    layout, as the train step's autograd runs them."""
     import torch
 
+    from repro_torch.kernels import ssd_scan as ssd
+
+    H, P, N = heads
+    nc = L // chunk
+    xs, dt, A, Bm, Cm, Dv = ssd_inputs(g, B, L, heads, torch.float32)
+    xk = xs.reshape(B, nc, chunk, H, P).permute(0, 3, 1, 2, 4)
+    dtk = dt.reshape(B, nc, chunk, H).permute(0, 3, 1, 2)
+    Bk, Ck = Bm.reshape(B, nc, chunk, N), Cm.reshape(B, nc, chunk, N)
+    Ab, Db = A.expand(B, H), Dv.expand(B, H)
+    dy = torch.randn((B, H, nc, chunk, P), generator=g, device="cuda")
+
+    def call():
+        y, states = ssd.ssd_scan_bhcsp(xk, dtk, Ab, Bk, Ck, Db,
+                                       save_states=True)
+        ssd.ssd_scan_bwd(xk, dtk, Ab, Bk, Ck, Db, states, dy)
+
+    return call
+
+
+def check_split_kernels() -> None:
+    """The train step's kernels at the local heads of a model rank,
+    against their plain versions: K3 forward and backward at yi-9b's
+    (model axis 2: 16 / 2 heads, 4: 8 / 1; f32 B 2, S 1024) and,
+    bidirectional, at whisper-large-v3's encoder's (10 and 5 of 20 heads
+    of 64; f32 B 2 over 1500 frames), at ``flash_case``'s tolerances; K6
+    and its backward through ``ops.ssd_scan`` at mamba2's and zamba2's
+    (16 / 8 and 40 / 20 heads; f32 B 2, L 1024), every gradient against
+    autograd of the plain version, at ``check_ssd_scan``'s."""
+    import torch
+
+    from repro_torch.analysis import kernel_checks as kc
+    from repro_torch.kernels import ops
     from repro_torch.train.parallel import local_heads
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3409,11 +3464,41 @@ def check_flash_tp() -> None:
                        heads=(Hl, KVl, D))
         log(f"launch: tensor-parallel rank, model axis {model}: "
             + c["line"].split(": ", 1)[1])
+    (H, KV, D), frames = kc.WHISPER_ENCODER
+    for model in kc.SPLIT_MODEL_AXES:
+        Hl, KVl = local_heads(H, KV, model)
+        c = flash_case(g, torch.float32, 2, frames, 0, True,
+                       heads=(Hl, KVl, D), causal=False)
+        log(f"launch: whisper-large-v3 encoder, model axis {model}: "
+            + c["line"].split(": ", 1)[1])
+    tol = SSD_RTOL["float32"]
+    for model in kc.SPLIT_MODEL_AXES:
+        for arch, (Hs, P, N) in kc.SSM_TP_HEADS.items():
+            heads = (Hs // model, P, N)
+            args = ssd_inputs(g, 2, 1024, heads, torch.float32)
+            dy = torch.randn(args[0].shape, generator=g, device="cuda")
+            out = []
+            for fn in (ops.ssd_scan, ssd_plain):
+                leaves = [t.detach().clone().requires_grad_() for t in args]
+                y = fn(*leaves, 128)
+                out.append((y.detach(),
+                            torch.autograd.grad(y, leaves, dy)))
+            torch.cuda.synchronize()
+            rels = [rel_err(out[0][0], out[1][0])] + [
+                rel_err(a, b) for a, b in zip(out[0][1], out[1][1])]
+            names = ("y", "dx", "ddt", "dA", "dBm", "dCm", "dD")
+            for n, r in zip(names, rels):
+                assert r <= tol, (f"ssd_scan {arch} model axis {model}: "
+                                  f"{n} max|err|/max {r} > {tol}")
+            log(f"launch: {arch} mixer, model axis {model}: ssd_scan "
+                f"float32 B=2 L=1024 H={heads[0]} P={P} N={N} chunk=128: "
+                + " ".join(f"{n} {r:.3g}" for n, r in zip(names, rels))
+                + f" max|err|/max (tol {tol})")
 
 
 def lint_main() -> None:
-    """:func:`check_lint` and :func:`check_flash_tp` as the body of a
-    fresh process (see :func:`check_lint_fresh`)."""
+    """:func:`check_lint` and :func:`check_split_kernels` as the body of
+    a fresh process (see :func:`check_lint_fresh`)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -3423,7 +3508,7 @@ def lint_main() -> None:
     so = _build.build()
     _build.library()
     check_lint(so)
-    check_flash_tp()
+    check_split_kernels()
 
 
 def check_lint_fresh() -> None:

@@ -257,21 +257,23 @@ def flash_bwd_invocations(shape_name: str, *, B: int, H: int, S: int,
 def tensor_parallel_flash_invocations(
         shape_name: str, *, B: int, H: int, S: int, D: int, KV: int,
         model: int, dtype: str = "float32", backward: bool = True,
+        causal: bool = True,
         sm_count: int = H100_SM_COUNT) -> List[KernelInvocation]:
     """K3's forward (and backward) launches on one model rank of a layout
     that splits ``H`` query heads over ``model`` ranks: the rank's local
     heads and the KV heads they read (``train.parallel.local_heads``;
     when ``KV % model != 0`` the rules keep ``wk``/``wv`` whole and the
-    rank slices the ones its queries map to).  The kernel maps local head j to local KV head ``j //
-    (H_loc / KV_loc)``, the global map only when the local heads cover
-    whole groups of G = H / KV or lie inside one: any other split is
-    K106 (the layout raises there)."""
+    rank slices the ones its queries map to); ``causal=False`` for an
+    encoder's bidirectional attention.  The kernel maps local head j to
+    local KV head ``j // (H_loc / KV_loc)``, the global map only when
+    the local heads cover whole groups of G = H / KV or lie inside one:
+    any other split is K106 (the layout raises there)."""
     h, kv = local_heads(H, KV, model)
     name = f"{shape_name}@model{model}"
     out = [flash_invocation(name, B=B, H=h, S=S, D=D, KV=kv, dtype=dtype)]
     if backward:
         out += flash_bwd_invocations(name, B=B, H=h, S=S, D=D, KV=kv,
-                                     sm_count=sm_count)
+                                     causal=causal, sm_count=sm_count)
     if h != H:
         G = H // KV
         local_map = Divisibility(
@@ -285,6 +287,35 @@ def tensor_parallel_flash_invocations(
 
 YI_TP_HEADS = (32, 4, 128)  # yi-9b's (H, KV, head_dim)
 TP_MODEL_AXES = (2, 4, 8)
+# the train step's other kernels on a model rank: K6 and its backward at
+# mamba2's and zamba2's (SSM heads, head_dim, state), K3 bidirectional at
+# whisper-large-v3's encoder (H, KV, head_dim) over its 1500 frames
+SSM_TP_HEADS = {"mamba2-370m": (32, 64, 128), "zamba2-2.7b": (80, 64, 64)}
+WHISPER_ENCODER = ((20, 20, 64), 1500)
+SPLIT_MODEL_AXES = (2, 4)
+
+
+def tensor_parallel_ssd_invocations(
+        shape_name: str, *, B: int, L: int, H: int, P: int, N: int,
+        chunk: int, model: int, dtype: str = "float32",
+        backward: bool = True) -> List[KernelInvocation]:
+    """K6's forward (and backward) launches on one model rank of a layout
+    that splits a Mamba2 mixer's ``H`` SSM heads over ``model`` ranks
+    (``models.ssm._local_heads``): H / model heads, B and C whole.  A
+    model axis that does not divide the heads is K106 (the layout raises
+    there)."""
+    h = H // model if H % model == 0 else H
+    name = f"{shape_name}@model{model}"
+    out = [ssd_invocation(name, B=B, L=L, H=h, P=P, N=N, chunk=chunk,
+                          dtype=dtype)]
+    if backward:
+        out.append(ssd_invocation(name, B=B, L=L, H=h, P=P, N=N,
+                                  chunk=chunk, dtype=dtype, backward=True))
+    heads = Divisibility(f"SSM heads ({H}) over the model axis ({model})",
+                         H, model, code="K106")
+    for inv in out:
+        inv.constraints = inv.constraints + [heads]
+    return out
 
 
 def paged_invocation(shape_name: str, *, B: int, H: int, D: int, P: int,
@@ -647,6 +678,18 @@ def default_invocations(sm_count: int = H100_SM_COUNT
         out.extend(tensor_parallel_flash_invocations(
             "train_4k/yi-9b", B=min(sc.global_batch, 8), H=H, S=sc.seq_len,
             D=D, KV=KV, model=model, sm_count=sm_count))
+    # and K6 with its backward at the SSM archs' local heads, K3
+    # bidirectional at whisper's encoder's
+    (H, KV, D), S = WHISPER_ENCODER
+    for model in SPLIT_MODEL_AXES:
+        for arch, (Hs, P, N) in SSM_TP_HEADS.items():
+            out.extend(tensor_parallel_ssd_invocations(
+                f"train_4k/{arch}", B=min(sc.global_batch, 8),
+                L=sc.seq_len, H=Hs, P=P, N=N, chunk=128, model=model))
+        out.extend(tensor_parallel_flash_invocations(
+            "whisper-large-v3/encoder-train", B=min(sc.global_batch, 8),
+            H=H, S=S, D=D, KV=KV, model=model, causal=False,
+            sm_count=sm_count))
     return out
 
 

@@ -18,11 +18,14 @@ ZeRO), heads, d_ff, experts and the vocabulary over "model", each pod a
 replica of the layout (HSDP).  Each rank takes its rows of the batch by
 ``array_batch_specs`` (over ("pod", "data"): the model ranks of one data
 group take the same rows).  The step (``make_train_step`` with the
-``train.parallel.Layout``) gathers each layer before use, splits
-self-attention and MLP over "model", reduces the gradients and clips by
-the whole gradient's norm, so it equals the one-process step on the
-whole batch; at world size 1 every axis has size 1 and it is
-``make_train_step``'s bit for bit.  ``--checkpoint`` gathers the whole
+``train.parallel.Layout``) gathers each layer over "data" before use,
+splits the compute over "model" wherever the storage is split (the
+vocabulary and its log-softmax, heads, d_ff, experts, SSM heads),
+reduces the gradients and clips by the whole gradient's norm, so it
+equals the one-process step on the whole batch; at world size 1 every
+axis has size 1 and it is ``make_train_step``'s bit for bit.  A model
+axis that ``param_specs`` cannot honour (a leaf it would keep whole
+there, so computed whole on every rank) is refused, naming the leaf.  ``--checkpoint`` gathers the whole
 leaves and rank 0 writes them in the format ``load_checkpoint`` reads
 (the JAX package's too): a sharded run's checkpoint loads into a
 one-rank run.
@@ -52,7 +55,11 @@ from repro_torch.models import init_model
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, init_adamw
 from repro_torch.train.parallel import Layout, shard_params
-from repro_torch.train.sharding_rules import array_batch_specs, param_specs
+from repro_torch.train.sharding_rules import (
+    array_batch_specs,
+    model_axis_misses,
+    param_specs,
+)
 from repro_torch.train.trainer import TrainHParams, lm_loss, make_train_step
 from repro_torch.utils.logging import log
 from repro_torch.utils.sharding import placements, set_active_mesh
@@ -138,6 +145,13 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
         whole = init_model(torch.Generator(device=device).manual_seed(0),
                            cfg, torch.float32, device)
         layout = Layout(mesh, param_specs(mesh, cfg, whole))
+        misses = model_axis_misses(mesh, cfg, whole)
+        if misses:
+            raise ValueError(
+                f"a model axis of {layout.model} cannot split {misses[0]}"
+                + (f" (and {len(misses) - 1} more leaves)"
+                   if len(misses) > 1 else "")
+                + f" of {cfg.name}: param_specs keeps it whole there")
         if cfg.moe is not None and args.batch % layout.row_groups:
             raise ValueError(
                 f"an MoE batch of {args.batch} rows must split evenly over "

@@ -155,14 +155,20 @@ def cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     kv_src: torch.Tensor) -> torch.Tensor:
     """x attends to kv_src (decoder to encoder, text to image tokens):
     no rope, no mask, plain products (the JAX package computes it in XLA,
-    outside any Pallas kernel)."""
+    outside any Pallas kernel).  Split over a layout's model axis (a
+    ``"tp"`` marker, as :func:`attention`'s): this rank's heads, ``x``
+    and ``kv_src`` entering through "f", the output through "g"."""
+    tp = p.get("tp")
+    if tp is not None:
+        x, kv_src = tp.enter(x), tp.enter(kv_src)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     out = sdpa(q, k, v, None)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y if tp is None else tp.exit(y)
 
 
 def cross_attention_cached(p: Params, x: torch.Tensor, ck: torch.Tensor,

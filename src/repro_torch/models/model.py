@@ -260,23 +260,30 @@ def _checkpointed(body, x, remat: bool):
     return checkpoint(body, x, use_reentrant=False) if remat else body(x)
 
 
-def _whole(tree, *path, tp: bool = False):
+def _whole(tree, *path):
     """The gather of one rank holding every weight whole: the identity."""
     return tree
 
 
+def _embedding(params: Params, gather, name: str) -> Params:
+    """The embedding's dict with its one weight ``name`` gathered."""
+    return gather({name: params["embed"][name]}, "embed")
+
+
 def _unembed(params: Params, gather, x):
     """The output projection (the tied embedding when there is no
-    ``unembed``), its one weight gathered."""
+    ``unembed``)."""
     name = "unembed" if "unembed" in params["embed"] else "tokens"
-    return unembed({name: gather(params["embed"][name], "embed", name)}, x)
+    return unembed(_embedding(params, gather, name), x)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             extra=None, *, remat: bool = False, return_hidden: bool = False,
             gather=None):
     """Returns (logits (B, S, padded_vocab), aux_loss scalar), plus the
-    final hidden state when ``return_hidden``.
+    final hidden state when ``return_hidden``; under a layout that splits
+    the vocabulary the logits are this model rank's slice, a
+    ``layers.VocabShard``.
 
     ``extra`` holds ``image_embeds`` (B, num_image_tokens, d) for a VLM
     and ``frame_embeds`` (B, encoder_seq_len, d) for an encoder-decoder,
@@ -285,20 +292,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     recomputed in the backward pass), and each encoder layer.  An MoE
     stack sums each layer's aux loss, as JAX's scan carries it.
 
-    ``gather(tree, *path, tp=False)`` maps the params at ``path`` to what
-    the compute reads (``train.parallel.Layout.gather`` over shards; the
+    ``gather(tree, *path)`` maps the params at ``path`` to what the
+    compute reads (``train.parallel.Layout.gather`` over shards; the
     identity by default).  Each layer's runs inside its checkpointed
-    body, so remat gathers again in the backward; ``tp=True`` (the
-    decoder's layers and the hybrid's shared block) lets a layout split
-    self-attention and MLP over its model axis.  The JAX ``act_spec``
-    (a sequence-parallel constraint its dry-run sets and its launcher
-    does not) has no counterpart.
+    body, so remat gathers again in the backward.  A layout's model
+    axis splits the compute wherever the rules store a leaf split there
+    (the vocabulary, heads, d_ff, experts, SSM heads; the dicts carry
+    its marker and the code below reads it).  The JAX ``act_spec`` (a
+    sequence-parallel constraint its dry-run sets and its launcher does
+    not) has no counterpart.
     """
     if cfg.kind not in _LAYER_INIT:
         raise ValueError(cfg.kind)
     g = gather or _whole
-    x = embed({"tokens": g(params["embed"]["tokens"], "embed", "tokens")},
-              tokens)
+    x = embed(_embedding(params, g, "tokens"), tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     src, cross = None, None
     if cfg.kind == VLM:
@@ -313,9 +320,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                      remat=remat, gather=gather)
     for i, lp in enumerate(unstack_layers(params["layers"])):
         def body(x, lp=lp, cp=cross[i] if cross else None):
-            shared = (g(params["shared_attn"], "shared_attn", tp=True)
+            shared = (g(params["shared_attn"], "shared_attn")
                       if "shared_attn" in params else None)
-            return _layer_fwd(g(lp, "layers", tp=True), cfg, x,
+            return _layer_fwd(g(lp, "layers"), cfg, x,
                               window=cfg.sliding_window, shared=shared,
                               cross=None if cp is None
                               else g(cp, "cross_layers"), src=src)
@@ -334,7 +341,7 @@ def encode(params: Params, cfg: ModelConfig, frame_embeds: torch.Tensor, *,
     """Whisper-style encoder over precomputed (stub-frontend) frames:
     bidirectional self-attention layers (``kops.flash_attention`` with
     ``causal=False``), then ``ln_enc``; ``gather`` as :func:`forward`'s
-    (the encoder's layers are gathered whole)."""
+    (a model axis splits the encoder's heads and d_ff)."""
     g = gather or _whole
     x = frame_embeds
     for lp in unstack_layers(params["enc_layers"]):

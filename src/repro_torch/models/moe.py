@@ -4,8 +4,8 @@ and the exact top-k combine of the serve tier.
 Counterpart of the JAX package's ``models/moe.py``, with its signatures
 minus ``use_kernel``: the route follows the device, as for the other
 kernels (:mod:`repro_torch.kernels.ops`).  The JAX sharding hints have no
-counterpart: across ranks a layout gathers the experts whole and the
-block's rows (``train.parallel``).
+counterpart: across ranks a layout gathers the block's rows and splits
+the experts over its model axis (``train.parallel``).
 
 - :func:`moe_block` (training and recompute) keeps JAX's capacity
   dispatch and aux loss.  Its three expert products are batched matmuls,
@@ -93,7 +93,16 @@ def moe_block(p: Params, cfg: ModelConfig,
 
     Over a batch split across ranks (a ``"rows"`` marker in ``p``,
     ``train.parallel``) the dispatch and the aux loss run on the whole
-    batch, gathered from the ranks, and each rank keeps its rows."""
+    batch, gathered from the ranks, and each rank keeps its rows.
+
+    Split over a layout's model axis (a ``"tp"`` marker) every rank
+    routes the whole batch and computes the whole aux loss, then runs
+    the capacity rows of its E / m experts (``p["gate"]`` holds fewer
+    than E), or every expert's rows over its d_ff / m columns.  Its
+    combine is a partial sum that leaves through "g"; the dispatched
+    tokens and the gate values enter through "f", so the router's
+    gradient from the gate values is summed over the ranks while its
+    aux-loss part, whole on every rank, is not."""
     rows = p.get("rows")
     if rows is not None:
         y, aux = moe_block({k: v for k, v in p.items() if k != "rows"},
@@ -113,21 +122,32 @@ def moe_block(p: Params, cfg: ModelConfig,
     flat_expert = expert_idx.reshape(T * k)  # token-major order
     my_pos, _ = expert_positions(flat_expert, E)
     keep = my_pos < C
-    slot = torch.where(keep, flat_expert * C + my_pos, E * C)  # overflow row
+    tp, xs = p.get("tp"), xf
+    El, lo = p["gate"].shape[-3], 0  # the experts this rank runs
+    if tp is not None:
+        xs, gate_vals = tp.enter(xf), tp.enter(gate_vals)
+        if El < E:
+            lo = tp.rank * El
+            keep = keep & (flat_expert >= lo) & (flat_expert < lo + El)
+    # overflow (and another rank's experts) to the last row
+    slot = torch.where(keep, (flat_expert - lo) * C + my_pos, El * C)
 
     token_ids = torch.arange(T, device=x.device).repeat_interleave(k)
-    buf = x.new_zeros((E * C + 1, d)).index_copy(0, slot, xf[token_ids])
-    buf = buf[: E * C].view(E, C, d)
+    buf = x.new_zeros((El * C + 1, d)).index_copy(0, slot, xs[token_ids])
+    buf = buf[: El * C].view(El, C, d)
 
     # ---- expert FFN (grouped matmul) ----
     h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
-    out_flat = torch.bmm(h, p["down"]).reshape(E * C, d)
+    out_flat = torch.bmm(h, p["down"]).reshape(El * C, d)
 
     # ---- combine ----
-    gathered = torch.where(keep[:, None], out_flat[slot.clamp(max=E * C - 1)],
+    gathered = torch.where(keep[:, None],
+                           out_flat[slot.clamp(max=El * C - 1)],
                            0.0)  # (Tk, d)
     weighted = gathered * gate_vals.reshape(T * k, 1).to(x.dtype)
     y = weighted.reshape(T, k, d).sum(1)
+    if tp is not None:
+        y = tp.exit(y)
 
     if "shared" in p:
         y = y + mlp(p["shared"], xf)

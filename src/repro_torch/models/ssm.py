@@ -62,8 +62,10 @@ def init_mamba2(gen, cfg: ModelConfig, dtype, device, *,
     }
 
 
-def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
-    di, n = cfg.d_inner, cfg.ssm.state_size
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor, di: int = 0):
+    """[z, x, B, C, dt] of ``proj``; ``di`` is x's and z's width (the
+    heads' share of ``d_inner`` on a model rank)."""
+    di, n = di or cfg.d_inner, cfg.ssm.state_size
     z = proj[..., :di]
     xs = proj[..., di:2 * di]
     B = proj[..., 2 * di:2 * di + n]
@@ -160,13 +162,56 @@ def init_ssm_state(cfg: ModelConfig, B: int, dtype, device) -> SSMState:
 # ---------------------------------------------------------------------------
 # Full block: train/prefill forward
 # ---------------------------------------------------------------------------
+def _local_heads(p: Params, cfg: ModelConfig, tp) -> Params:
+    """The mixer's params for model rank ``tp.rank``'s nh / m heads:
+    its heads' z, x and dt columns of ``in_proj`` with B and C whole, its
+    x columns of ``conv_w`` and ``conv_b`` with B and C whole (those
+    three come whole from the layout, which sums their gradient over the
+    ranks), ``dt_bias``, ``A_log``, ``D`` and the norm's scale sliced
+    through "f", ``out_proj``'s rows as stored.  The gated norm stays
+    one norm over the whole ``d_inner`` (its marker totals the sum of
+    squares)."""
+    s = cfg.ssm
+    di, n, nh = cfg.d_inner, s.state_size, cfg.num_ssm_heads
+    if nh % tp.size:
+        raise ValueError(f"{nh} SSM heads over {tp.size} model ranks")
+    h = nh // tp.size
+    h0 = tp.rank * h
+    c0, c = h0 * s.head_dim, h * s.head_dim
+
+    def cols(w, *spans):
+        return torch.cat([w[..., a:a + k] for a, k in spans], dim=-1)
+
+    def heads(w):
+        return tp.enter(w)[..., h0:h0 + h]
+
+    return {
+        "in_proj": cols(p["in_proj"], (c0, c), (di + c0, c),
+                        (2 * di, 2 * n), (2 * di + 2 * n + h0, h)),
+        "conv_w": cols(p["conv_w"], (c0, c), (di, 2 * n)),
+        "conv_b": cols(p["conv_b"], (c0, c), (di, 2 * n)),
+        "dt_bias": heads(p["dt_bias"]), "A_log": heads(p["A_log"]),
+        "D": heads(p["D"]),
+        "norm": {"scale": tp.enter(p["norm"]["scale"])[..., c0:c0 + c],
+                 "tp": tp},
+        "out_proj": p["out_proj"],
+    }
+
+
 def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, L, d_model) -> (B, L, d_model)."""
+    """x: (B, L, d_model) -> (B, L, d_model).  Split over a layout's model
+    axis (a ``"tp"`` marker, ``train.parallel``), K6 runs on this rank's
+    heads (:func:`_local_heads`): ``x`` enters through "f" and the
+    row-parallel ``out_proj``'s partial sums leave through "g"."""
+    tp = p.get("tp")
+    if tp is not None:
+        p, x = _local_heads(p, cfg, tp), tp.enter(x)
     s = cfg.ssm
     B_, L, _ = x.shape
-    di, n, nh = cfg.d_inner, s.state_size, cfg.num_ssm_heads
+    n, nh = s.state_size, p["A_log"].shape[-1]
+    di = nh * s.head_dim
     proj = x @ p["in_proj"]
-    z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
+    z, xs, Bm, Cm, dt = _split_proj(cfg, proj, di)
     xBC = torch.cat([xs, Bm, Cm], dim=-1)
     xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
     xs, Bm, Cm = xBC[..., :di], xBC[..., di:di + n], xBC[..., di + n:]
@@ -178,8 +223,8 @@ def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     y = kops.ssd_scan(xh, dt, A, Bm, Cm, p["D"], chunk)
     y = y.reshape(B_, L, di).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm(p["norm"], y, cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = rmsnorm(p["norm"], y, cfg.norm_eps) @ p["out_proj"]
+    return y if tp is None else tp.exit(y)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,9 @@ over "model", replicas over "pod".
 
 JAX's launcher only places each parameter by ``param_specs``
 (``NamedSharding`` on every leaf, ``train/sharding_rules.py``) and GSPMD
-inserts the collectives, so its step equals the one-device step.  The
-port has no GSPMD: this module does the collectives by hand, with the
-same result.
+inserts the collectives, so its step equals the one-device step and its
+compute is split wherever a leaf's storage is.  The port has no GSPMD:
+this module does the collectives by hand, with the same result.
 
   * :func:`shard_params` keeps each rank's shard of every leaf: the
     whole leaf narrowed, dimension by dimension, to this rank's block
@@ -14,21 +14,31 @@ same result.
   * :class:`Layout` holds the mesh, the specs and a process group an
     axis, and gives the train step its three collectives:
 
-    - :meth:`Layout.gather` all-gathers a layer's leaves before use,
-      inside the layer's checkpointed body (``models.model.forward``),
-      so remat gathers again in the backward and the gathered layer is
-      freed after use.  Its backward reduce-scatters the gradient into
-      the shard (summed over "data"; averaged over "model", whose ranks
-      computed the same gradient).  With ``tp=True`` the self-attention
-      and MLP of a layer whose rules split heads or d_ff over "model"
-      stay split: ``wq``, ``wk``, ``wv``, ``gate`` and ``up`` column-
-      parallel, ``wo`` and ``down`` row-parallel, Megatron's conjugate
-      pair around them (:class:`ModelParallel`).  Every other leaf is
-      gathered whole over both axes and computed as on one rank.
+    - :meth:`Layout.gather` all-gathers a layer's leaves over "data"
+      before use, inside the layer's checkpointed body
+      (``models.model.forward``), so remat gathers again in the backward
+      and the gathered layer is freed after use; its backward
+      reduce-scatters the gradient into the shard.  Over "model" it
+      keeps every leaf that the rules split there split, and marks the
+      dict that computes with it (:class:`ModelParallel` under ``"tp"``,
+      Megatron's "f" on the input and "g" on the partial sums): the
+      vocabulary of the embedding and the unembedding (the losses read
+      the local logits through a vocab-parallel log-softmax), the heads
+      of self-attention, cross-attention and the encoder's attention
+      (``wq``, ``wk``, ``wv`` column-parallel, ``wo`` row-parallel), the
+      d_ff of the dense MLP and of the shared expert, the experts of an
+      MoE (or each expert's d_ff where the model axis does not divide
+      the experts), and the heads of a Mamba2 mixer.  Three leaves are
+      gathered whole over "model": the mixer's ``in_proj``, ``conv_w``
+      and ``conv_b``, whose columns ([z, x, B, C, dt] and [x, B, C])
+      do not line up with heads; each rank slices its heads' columns
+      from them, and their backward sums the model ranks' parts.
     - :meth:`Layout.reduce` finishes the gradient: an all-reduce over
       "data" for the leaves stored whole there, over "pod" for every
       leaf (HSDP: weight gathers stay in a pod), and over "model" for
-      the leaves stored whole there; then the mean over the row groups.
+      the leaves stored whole there (each rank's gradient is whole after
+      the "f" of the compute that reads them); then the mean over the
+      row groups and the model ranks' copies.
     - :meth:`Layout.grad_norm` sums each leaf's squares once over its
       shards (a replicated leaf on one rank of its replicas) and
       all-reduces the sum.
@@ -149,20 +159,16 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 class _AllGather(torch.autograd.Function):
-    """All-gather along ``dim`` forward; reduce-scatter (times
-    ``scale``) backward."""
+    """All-gather along ``dim`` forward; reduce-scatter backward."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, scale):
-        ctx.dim, ctx.group, ctx.scale = dim, group, scale
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
         return all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        g = reduce_scatter(grad, ctx.dim, ctx.group)
-        if ctx.scale != 1.0:
-            g = g * ctx.scale
-        return g, None, None, None
+        return reduce_scatter(grad, ctx.dim, ctx.group), None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -194,20 +200,51 @@ class _Exit(torch.autograd.Function):
         return grad, None
 
 
+class _Total(torch.autograd.Function):
+    """An all-reduce forward and backward: a sum every rank reads whose
+    terms each rank computed in part, and whose readers each hold only
+    their part of its gradient (the split norm's sum of squares)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = _contiguous_copy(x)
+        _dist().all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = _contiguous_copy(grad)
+        _dist().all_reduce(g, group=ctx.group)
+        return g, None
+
+
 @dataclass(frozen=True)
 class ModelParallel:
-    """The marker a tensor-parallel attention or MLP dict carries under
-    the key ``"tp"``: its input enters through :meth:`enter` (a partial
-    gradient on each model rank, summed backward) and its row-parallel
-    output leaves through :meth:`exit` (partial sums, summed forward)."""
+    """The marker a dict split over the model axis carries under the key
+    ``"tp"`` (attention, MLP, MoE, a Mamba2 mixer, the embedding): its
+    input enters through :meth:`enter` (a partial gradient on each model
+    rank, summed backward), its row-parallel output leaves through
+    :meth:`exit` (partial sums, summed forward), and a sum over a split
+    dimension that every rank reads goes through :meth:`total`."""
     group: Any
     rank: int
+    size: int
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _Enter.apply(x, self.group)
 
     def exit(self, y: torch.Tensor) -> torch.Tensor:
         return _Exit.apply(y, self.group)
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        return _Total.apply(x, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The largest ``x`` over the model ranks (no gradient)."""
+        y = _contiguous_copy(x.detach())
+        _dist().all_reduce(y, op=_dist().ReduceOp.MAX, group=self.group)
+        return y
 
 
 @dataclass(frozen=True)
@@ -224,7 +261,7 @@ class RowParallel:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         for group in self.groups:
-            x = _AllGather.apply(x, 0, group, 1.0)
+            x = _AllGather.apply(x, 0, group)
         return x
 
     def local(self, y: torch.Tensor) -> torch.Tensor:
@@ -322,46 +359,63 @@ class Layout:
 
     def _whole(self, x: torch.Tensor, spec: PartitionSpec,
                keep: Tuple[str, ...] = ()) -> torch.Tensor:
-        """``x`` gathered along every axis of its spec but ``keep``: a
-        model gather's backward averages the model ranks' copies."""
+        """``x`` gathered along every axis of its spec but ``keep``.  A
+        split over "model" must be kept: gathered, every model rank would
+        compute the leaf whole (the launcher refuses such a mesh by
+        ``model_axis_misses``)."""
         for d, axes in enumerate(_spec_at(spec, x.dim())):
             if not axes:
                 continue
             a = _axis_of(axes)
             if a in keep or a not in self.groups:
                 continue
-            scale = 1.0 / self.sizes[a] if a == MODEL else 1.0
-            x = _AllGather.apply(x, d, self.groups[a], scale)
+            if a == MODEL:
+                raise ValueError(
+                    f"a leaf of shape {tuple(x.shape)} stored split over "
+                    f"\"model\" by {spec} would be computed whole on every "
+                    f"model rank")
+            x = _AllGather.apply(x, d, self.groups[a])
         return x
 
-    def _whole_tree(self, tree: Any, specs: Any) -> Any:
+    def _whole_tree(self, tree: Any, specs: Any,
+                    keep: Tuple[str, ...] = ()) -> Any:
         if isinstance(tree, dict):
-            return {k: self._whole_tree(v, specs[k]) for k, v in tree.items()}
-        return self._whole(tree, specs)
+            return {k: self._whole_tree(v, specs[k], keep)
+                    for k, v in tree.items()}
+        return self._whole(tree, specs, keep)
 
-    def gather(self, tree: Any, *path: str, tp: bool = False) -> Any:
+    def gather(self, tree: Any, *path: str) -> Any:
         """``tree`` (the params at ``path``: a leaf, a layer's dict, a
-        stacked group's) as its compute reads it.  ``tp`` asks for the
-        tensor-parallel split of its "attn" and "mlp" dicts; an "moe"
-        dict carries the row groups' marker."""
+        stacked group's, or part of the embedding's dict) as its compute
+        reads it on this rank: gathered over "data" and "pod", split over
+        "model" as the rules store it, each split dict marked; an "moe"
+        dict also carries the row groups' marker."""
         if not self.groups:
             return tree
         specs = self._spec(path)
         if not isinstance(tree, dict):
             return self._whole(tree, specs)
-        split = tp and self.model > 1
+        if path == ("embed",):
+            return self._vocab(tree, specs)
         out = {}
         for k, v in tree.items():
-            if split and k == "attn" and self._splits(specs[k]["wq"], -2):
-                out[k] = self._tp_attention(v, specs[k])
-            elif split and k == "mlp" and self._splits(specs[k]["gate"],
-                                                       -1):
-                out[k] = self._tp_mlp(v, specs[k])
-            else:
-                out[k] = self._whole_tree(v, specs[k])
+            out[k] = self._part(k, v, specs[k])
             if k == "moe" and self.row_groups > 1:
                 out[k]["rows"] = self._rows()
         return out
+
+    def _part(self, k: str, v: Any, s: Any) -> Any:
+        if self.model > 1 and isinstance(v, dict):
+            if k in ("attn", "xattn") and self._splits(s["wq"], -2):
+                return self._tp_attention(v, s)
+            if k in ("mlp", "shared") and self._splits(s["gate"], -1):
+                return self._tp_mlp(v, s)
+            if k == "moe" and (self._splits(s["gate"], -3)
+                               or self._splits(s["gate"], -1)):
+                return self._tp_moe(v, s)
+            if k == "mixer" and self._splits(s["out_proj"], -2):
+                return self._tp_mixer(v, s)
+        return self._whole_tree(v, s)
 
     def _rows(self) -> RowParallel:
         groups = tuple(self.groups[a] for a in (DATA, POD)
@@ -375,15 +429,28 @@ class Layout:
         return len(axes) >= -dim and MODEL in axes[dim]
 
     def _marker(self) -> ModelParallel:
-        return ModelParallel(self.groups[MODEL], self.coords[MODEL])
+        return ModelParallel(self.groups[MODEL], self.coords[MODEL],
+                             self.model)
+
+    def _vocab(self, p: Dict[str, Any], s: Dict[str, Any]):
+        """The embedding's ``tokens`` or ``unembed`` with this model
+        rank's rows (columns) of the padded vocabulary, marked; whole
+        when the rules keep the vocabulary whole on "model"."""
+        dims = {"tokens": -2, "unembed": -1}
+        if self.model == 1 or not all(self._splits(s[k], dims[k])
+                                      for k in p):
+            return self._whole_tree(p, s)
+        out = self._whole_tree(p, s, (MODEL,))
+        out["tp"] = self._marker()
+        return out
 
     def _tp_attention(self, p: Dict[str, Any], s: Dict[str, Any]):
-        """A self-attention dict on this model rank: local query heads
-        (``wq``, ``wo`` as stored), the KV heads they read (``wk``,
-        ``wv`` as stored when split, else sliced from the whole), the
-        biases sliced to those heads and the q/k norms whole; a leaf
-        stored whole over "model" enters through "f", since each rank
-        adds only its heads' part to its gradient."""
+        """An attention dict (self-attention, cross-attention) on this
+        model rank: local query heads (``wq``, ``wo`` as stored), the KV
+        heads they read (``wk``, ``wv`` as stored when split, else sliced
+        from the whole), the biases sliced to those heads and the q/k
+        norms whole; a leaf stored whole over "model" enters through
+        "f", since each rank adds only its heads' part to its gradient."""
         tp = self._marker()
         keep = (MODEL,)
         H_loc = p["wq"].shape[-2]
@@ -414,9 +481,37 @@ class Layout:
         return out
 
     def _tp_mlp(self, p: Dict[str, Any], s: Dict[str, Any]):
-        """A SwiGLU MLP on this model rank: its d_ff columns of ``gate``
-        and ``up``, its rows of ``down``."""
-        out = {k: self._whole(p[k], s[k], (MODEL,)) for k in p}
+        """A SwiGLU MLP (dense or an MoE's shared expert) on this model
+        rank: its d_ff columns of ``gate`` and ``up``, its rows of
+        ``down``."""
+        out = self._whole_tree(p, s, (MODEL,))
+        out["tp"] = self._marker()
+        return out
+
+    def _tp_moe(self, p: Dict[str, Any], s: Dict[str, Any]):
+        """An MoE dict on this model rank: its experts' ``gate``, ``up``
+        and ``down`` as stored (E / m experts, or every expert's d_ff / m
+        where the model axis does not divide the experts), the router
+        whole (each rank routes the whole batch), the shared expert split
+        as a dense MLP."""
+        out = {k: (self._part(k, v, s[k]) if k == "shared"
+                   else self._whole(v, s[k], (MODEL,)))
+               for k, v in p.items()}
+        out["tp"] = self._marker()
+        return out
+
+    def _tp_mixer(self, p: Dict[str, Any], s: Dict[str, Any]):
+        """A Mamba2 mixer on this model rank: ``out_proj``'s rows of its
+        heads as stored; ``in_proj``, ``conv_w`` and ``conv_b`` all-gathered
+        whole over "model", their backward summed there (each rank slices
+        its heads' columns and the whole B and C from them, so its
+        gradient is its part); the replicated leaves whole
+        (``models.ssm`` slices them to the local heads through "f")."""
+        out = self._whole_tree(p, s, (MODEL,))
+        for k in ("in_proj", "conv_w", "conv_b"):
+            if self._splits(s[k], -1):
+                out[k] = _AllGather.apply(out[k], out[k].dim() - 1,
+                                          self.groups[MODEL])
         out["tp"] = self._marker()
         return out
 

@@ -19,7 +19,7 @@ every layout the rules give.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.utils.sharding import (
@@ -30,6 +30,7 @@ from repro_torch.utils.sharding import (
     batch_axes,
     maybe_axis,
     mesh_shape,
+    spec_axes,
     spec_for,
 )
 from repro_torch.utils.treeutil import map_with_path, pytree_map
@@ -68,28 +69,66 @@ _MOE_EXPERT_RULES = {
 }
 
 
-def _spec_for_leaf(mesh: Any, cfg: ModelConfig, path: str, leaf) -> Spec:
-    shape = tuple(leaf.shape)
-    rank = len(shape)
+def _rule_axes(mesh: Any, cfg: ModelConfig, path: str,
+               rank: int) -> Tuple:
+    """The axes the rules ask for the leaf at ``path`` (before
+    ``spec_for`` drops those that do not divide); () for a replicated
+    leaf."""
     for suffix, base_rank, axes in _RULES:
         if path.endswith(suffix):
-            pad = (None,) * (rank - base_rank)
-            return spec_for(mesh, shape, pad + tuple(axes))
+            return (None,) * (rank - base_rank) + tuple(axes)
     for suffix, (ep_axes, tp_axes) in _MOE_EXPERT_RULES.items():
         if path.endswith(suffix):
             assert cfg.moe is not None
             msize = mesh_shape(mesh).get(MODEL, 1)
             axes = ep_axes if cfg.moe.num_experts % msize == 0 else tp_axes
-            pad = (None,) * (rank - 3)
-            return spec_for(mesh, shape, pad + tuple(axes))
+            return (None,) * (rank - 3) + tuple(axes)
     # biases, norms, A_log, D, gates ... -> replicated
-    return P()
+    return ()
+
+
+def _spec_for_leaf(mesh: Any, cfg: ModelConfig, path: str, leaf) -> Spec:
+    shape = tuple(leaf.shape)
+    axes = _rule_axes(mesh, cfg, path, len(shape))
+    return spec_for(mesh, shape, axes) if axes else P()
 
 
 def param_specs(mesh: Any, cfg: ModelConfig, params: Any) -> Any:
     """Spec tree mirroring ``params`` (tensors of any device, meta too)."""
     return map_with_path(
         lambda p, leaf: _spec_for_leaf(mesh, cfg, p, leaf), params)
+
+
+def model_axis_misses(mesh: Any, cfg: ModelConfig, params: Any) -> List[str]:
+    """The paths of the leaves whose compute the mesh's model axis cannot
+    split: the rules put a dimension on "model" and the axis does not
+    divide it (heads, d_ff, experts and d_ff both, the vocabulary), or a
+    mixer's SSM heads do not divide.  A ``wk`` or ``wv`` kept whole
+    beside a split ``wq`` is not one: each rank reads the KV heads its
+    query heads map to."""
+    msize = mesh_shape(mesh).get(MODEL, 1)
+    if msize == 1:
+        return []
+    flat: dict = {}
+    map_with_path(lambda p, x: flat.setdefault(p, x), params)
+
+    def split(path: str) -> bool:
+        shape = tuple(flat[path].shape)
+        axes = _rule_axes(mesh, cfg, path, len(shape))
+        return any(MODEL in a for a in spec_axes(spec_for(mesh, shape, axes)))
+
+    out: List[str] = []
+    for path, x in flat.items():
+        if MODEL not in _rule_axes(mesh, cfg, path, len(x.shape)):
+            continue
+        if split(path):
+            if (path.endswith("/mixer/out_proj")
+                    and cfg.num_ssm_heads % msize):
+                out.append(path)
+        elif not (path.endswith(("/wk", "/wv"))
+                  and split(path[:-2] + "wq")):
+            out.append(path)
+    return out
 
 
 # ---------------------------------------------------------------------------

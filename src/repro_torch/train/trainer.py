@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
-from repro_torch.models.layers import NEG_INF, token_logprobs
+from repro_torch.models.layers import token_entropy, token_logprobs
 from repro_torch.train.optimizer import (
     AdamWConfig,
     AdamWState,
@@ -73,7 +73,10 @@ def policy_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
       loss_mask     (B, S) f32 — 1 on response tokens
       ref_logprobs  (B, S) f32 — optional, for the k3 KL term
       (+ image_embeds / frame_embeds for vlm / encdec archs)
-    ``gather`` goes to ``forward`` (a layout's, over shards).
+    ``gather`` goes to ``forward`` (a layout's, over shards); under a
+    layout that splits the vocabulary the logits are this model rank's
+    slice (``models.layers.VocabShard``), which ``token_logprobs`` and
+    ``token_entropy`` read through the vocab-parallel log-softmax.
     """
     logits, aux = M.forward(params, cfg, batch["tokens"], _extra(batch),
                             remat=hp.remat, gather=gather)
@@ -104,12 +107,7 @@ def policy_loss(cfg: ModelConfig, hp: TrainHParams, params: Any,
                       * mask).sum() / denom,
     }
     if hp.entropy_coef > 0:
-        lg = logits[:, :-1].float()
-        V = lg.shape[-1]
-        lg = torch.where(torch.arange(V, device=lg.device) < cfg.vocab_size,
-                         lg, NEG_INF)
-        logp = torch.log_softmax(lg, dim=-1)
-        ent = -(torch.exp(logp) * logp).sum(-1)  # (B, S-1)
+        ent = token_entropy(logits[:, :-1], cfg.vocab_size)  # (B, S-1)
         ent_mean = (ent * mask).sum() / denom
         loss = loss - hp.entropy_coef * ent_mean
         metrics["entropy"] = ent_mean

@@ -1503,8 +1503,10 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("tag", ["K1", "K2", "K3", "K3bwd", "K3tp2",
-                                 "K3tp4", "K4", "K5", "K6", "K6bwd", "K7"])
+@pytest.mark.parametrize("tag", [
+    "K1", "K2", "K3", "K3bwd", "K3tp2", "K3tp4", "K3enc2", "K3enc4",
+    "K4", "K5", "K6", "K6bwd", "K6tp2-mamba2-370m", "K6tp2-zamba2-2.7b",
+    "K6tp4-mamba2-370m", "K6tp4-zamba2-2.7b", "K7"])
 def test_lint_predicts_the_profilers_launch_records(dev, tag):
     """Each kernel's pass-3 invocations at a main-path shape equal what
     the profiler records of one call: the same launches in order, grid,

@@ -203,6 +203,48 @@ def test_k3_at_yi_tensor_parallel_local_heads(model, local):
             in subjects)
 
 
+@pytest.mark.parametrize("arch,model,local", [
+    ("mamba2-370m", 2, 16), ("mamba2-370m", 4, 8),
+    ("zamba2-2.7b", 2, 40), ("zamba2-2.7b", 4, 20)])
+def test_k6_at_split_ssm_local_heads(arch, model, local):
+    """K6 and its backward on a model rank of a Mamba2 mixer split by
+    heads: mamba2's 32 heads give 16 and 8, zamba2's 80 give 40 and 20,
+    each launch a cluster per (head, row) of the rank's heads, clean and
+    in the registry at the train shape; heads the axis does not divide
+    are K106."""
+    H, P, N = tk.SSM_TP_HEADS[arch]
+    invs = tk.tensor_parallel_ssd_invocations(
+        "t", B=2, L=1024, H=H, P=P, N=N, chunk=128, model=model)
+    assert [i.launch for i in invs] == ["ssd_fwd_tf32_kernel",
+                                        "ssd_bwd_tf32_kernel"]
+    assert all(i.grid == (8, local, 2) for i in invs)
+    assert all(tk.check_invocation(i) == [] for i in invs)
+    subjects = {i.subject for i in tk.default_invocations()}
+    assert (f"ssd_scan/ssd_bwd_tf32_kernel@train_4k/{arch}@model{model}"
+            in subjects)
+    bad = tk.tensor_parallel_ssd_invocations(
+        "t", B=2, L=1024, H=H, P=P, N=N, chunk=128, model=3)
+    assert all(codes(tk.check_invocation(i)) == {"K106"} for i in bad)
+
+
+@pytest.mark.parametrize("model,local", [(2, 10), (4, 5)])
+def test_k3_bidirectional_at_whisper_encoder_local_heads(model, local):
+    """K3's forward and backward on a model rank of whisper-large-v3's
+    encoder (20 heads of 64, 1500 frames, bidirectional): 10 and 5 heads
+    a rank, every key tile a block in the backward (no causal pairing),
+    clean and in the registry."""
+    (H, KV, D), S = tk.WHISPER_ENCODER
+    invs = tk.tensor_parallel_flash_invocations(
+        "t", B=2, H=H, S=S, D=D, KV=KV, model=model, causal=False)
+    assert invs[0].grid == (24, local, 2)
+    dkdv = next(i for i in invs if i.launch == "flash_bwd_dkdv_kernel")
+    assert dkdv.grid[0] == 24 and dkdv.grid[2] == 2
+    assert all(tk.check_invocation(i) == [] for i in invs)
+    subjects = {i.subject for i in tk.default_invocations()}
+    assert ("flash_attention/flash_fwd_kernel@whisper-large-v3/"
+            f"encoder-train@model{model}" in subjects)
+
+
 def test_k106_when_a_layout_splits_a_kv_group():
     """12 query heads over 4 KV heads (groups of 3) on 3 model ranks: 4
     local heads span two groups, which the kernel's local map j // 2

@@ -4,10 +4,10 @@ of one host.
 
 Run from the repository root with four cards visible:
 
-    python3 tools/multicard_smoke.py [--phases layouts,devices]
+    python3 tools/multicard_smoke.py [--phases layouts,kinds,devices]
 
 It builds the kernels from the checkout's sources (as ``chip_smoke.py``
-does), then runs two phases:
+does), then runs three phases:
 
   layouts   four rank processes, one a card, in one ``nccl`` group
             (``tcp://localhost``): ``launch.train.run`` on yi-9b at full
@@ -28,6 +28,17 @@ does), then runs two phases:
             seconds and tokens/s; then ``reshard`` and ``reshard_params``
             between specs on a (2, 2) mesh of the four cards, bit for
             bit;
+  kinds     in the same rank processes: granite-moe, mamba2, zamba2,
+            whisper-large-v3 and llama-3.2-vision at full width cut to 2
+            layers (``kind_config``), f32, a GRPO batch of 4 x 512 tokens,
+            at (data, model) = (2, 2) and (1, 4), the compute split over
+            "model" wherever the rules store a leaf split there, against
+            the one-card step on the whole batch (``check_kinds``), at
+            two seeds of the weights and the batch: loss, grad norm and
+            every leaf of the gradient within 1e-5, or twice the larger
+            of the one card's own disagreements over four microbatches at
+            the two seeds where that is larger (not for the MoE); K3, K6
+            and their backwards launched a step on every rank as counted;
   devices   in this process: a reduced yi-9b ``RolloutWorker`` rebound
             from cuda:0 to cuda:1 (the unmoved worker's tokens, every
             byte of its engine freed from cuda:0, K1 and K2 launched as
@@ -266,6 +277,269 @@ def check_layouts(rank: int) -> list:
     return misses
 
 
+KINDS = ("granite-moe-3b-a800m", "mamba2-370m", "zamba2-2.7b",
+         "whisper-large-v3", "llama-3.2-vision-90b")
+KIND_MESHES = ((2, 2), (1, 4))  # (data, model)
+KIND_ROWS = 4
+KIND_TOKENS = 512  # whisper's decoder: its 448 positions
+KIND_SEEDS = (0, 1)
+
+
+def kind_config(arch: str):
+    """``arch`` at full width cut to 2 layers (whisper 2 + 2, zamba2 one
+    group of 6 SSM layers and its shared attention block, llama-vision
+    one self and one cross layer)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.kind == "hybrid":
+        return cfg.replace(num_layers=cfg.attn_every)
+    if cfg.kind == "vlm":
+        return cfg.replace(num_layers=2, cross_attn_every=2)
+    if cfg.kind == "encdec":
+        return cfg.replace(num_layers=2, num_encoder_layers=2)
+    return cfg.replace(num_layers=2)
+
+
+def kind_batch(cfg, seed: int):
+    """A GRPO batch of ``KIND_ROWS`` rows from ``seed`` on the card (the
+    VLM's image tokens, whisper's frames beside it)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    B = KIND_ROWS
+    S = min(KIND_TOKENS, cfg.max_seq_len) if cfg.kind == "encdec" \
+        else KIND_TOKENS
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).cuda(),
+        "old_logprobs": torch.zeros(B, S, device="cuda"),
+        "advantages": normal(B, S), "loss_mask": torch.ones(
+            B, S, device="cuda")}
+    if cfg.kind == "vlm":
+        batch["image_embeds"] = normal(B, cfg.num_image_tokens, cfg.d_model)
+    if cfg.kind == "encdec":
+        batch["frame_embeds"] = normal(B, cfg.encoder_seq_len, cfg.d_model)
+    return batch
+
+
+def kind_launches(cfg) -> dict:
+    """K3, K3 backward, K6, K6 backward launched by one remat train step
+    on a model rank: the forward and the remat's recompute launch the
+    forward kernels once a layer each, the backward once a layer (the
+    encoder's layers among them; cross-attention is plain products)."""
+    attn = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
+            "hybrid": cfg.num_layers // (cfg.attn_every or 1),
+            "vlm": cfg.num_layers - cfg.num_layers // (
+                cfg.cross_attn_every or 1),
+            "encdec": cfg.num_layers + cfg.num_encoder_layers}[cfg.kind]
+    ssm = cfg.num_layers if cfg.kind in ("ssm", "hybrid") else 0
+    return {"K3": 2 * attn, "K3bwd": attn, "K6": 2 * ssm, "K6bwd": ssm}
+
+
+def kind_counters() -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
+
+    c = launch_counters()
+    return {"K3": c["K3"], "K3bwd": c["K3bwd"], "K6": ssd.ssd_scan_bhcsp,
+            "K6bwd": ssd.ssd_scan_bwd}
+
+
+def loss_and_grads(cfg, hp, params, batch, gather=None, n_micro: int = 1):
+    """(loss, the gradient) of ``policy_loss`` on ``batch`` in
+    ``n_micro`` microbatches (the gradients averaged)."""
+    import torch
+
+    from repro_torch.train.trainer import policy_loss
+    from repro_torch.utils.treeutil import (tree_leaves, tree_map,
+                                            tree_unflatten)
+
+    n = KIND_ROWS // n_micro
+    total, loss = None, 0.0
+    for i in range(n_micro):
+        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        kw = {} if gather is None else {"gather": gather}
+        with torch.enable_grad():
+            out, _ = policy_loss(cfg, hp, live, mb, **kw)
+            g = torch.autograd.grad(out, tree_leaves(live))
+        loss += float(out.detach()) / n_micro
+        if total is None:
+            total = [x.div_(n_micro) for x in g]
+        else:
+            for a, x in zip(total, g):
+                a.add_(x, alpha=1.0 / n_micro)
+        del live, out, g
+    return loss, tree_unflatten(params, total)
+
+
+def grad_norm_of(tree: dict) -> float:
+    """The global norm, its squares summed in f64 (a slice of 2^24
+    elements at a time: llama-vision's embedding is 1.05 G of them)."""
+    return sum(float(c.double().square().sum())
+               for x in tree.values()
+               for c in x.reshape(-1).split(1 << 24)) ** 0.5
+
+
+def grad_gap(got: dict, want: dict) -> tuple:
+    """(rel error of the global norm, worst leaf within its norm, its
+    path) of gradient ``got`` against ``want`` (path: tensor)."""
+    import torch
+
+    norm = torch.linalg.vector_norm
+    leaf = max(((p, float(norm(got[p] - want[p]) / norm(want[p])))
+                for p in want), key=lambda kv: kv[1])
+    ref = grad_norm_of(want)
+    return abs(grad_norm_of(got) - ref) / ref, leaf[1], leaf[0]
+
+
+def conv_parts(cfg, got: dict, want: dict) -> str:
+    """A mixer's ``conv_w`` gradient within its norm over its x columns
+    and over its B and C columns, for an SSM kind: a split rank computes
+    the x columns of its heads alone, while B's and C's are the sum of
+    every model rank's part (its heads' share)."""
+    import torch
+
+    norm = torch.linalg.vector_norm
+    path = next((p for p in want if p.endswith("/mixer/conv_w")), None)
+    if path is None:
+        return ""
+    di = cfg.d_inner
+    err = [float(norm(got[path][..., c] - want[path][..., c])
+                 / norm(want[path][..., c]))
+           for c in (slice(0, di), slice(di, None))]
+    return f"; conv_w x {err[0]:.3g}, B and C {err[1]:.3g}"
+
+
+def check_kinds(rank: int) -> list:
+    """Every kind at full width cut to 2 layers (``kind_config``) at
+    (data, model) = (2, 2) and (1, 4), its compute split over "model"
+    wherever the rules store a leaf split there, against one card on the
+    whole batch, which every rank computes on its own card, at each seed
+    of ``KIND_SEEDS`` (the weights and the batch): the layout's train
+    step (``policy_loss`` with its entropy term, remat, AdamW) in loss
+    and grad norm, and its gradient (reduced, gathered whole) in every
+    leaf, within 1e-5, or twice the larger of the one card's
+    disagreements with itself over the same rows in four microbatches of
+    one, at the seeds, where that is larger (not for the MoE, whose
+    capacity dispatch depends on the microbatch); K3, K6 and their
+    backwards launched exactly as ``kind_launches`` counts them on every
+    rank.  Returns the misses."""
+    import torch
+
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_model
+    from repro_torch.train import AdamWConfig, TrainHParams, make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.parallel import Layout, shard_params
+    from repro_torch.train.sharding_rules import param_specs
+    from repro_torch.train.trainer import policy_loss
+    from repro_torch.utils.treeutil import tree_map, tree_paths
+
+    misses = []
+    counters = kind_counters()
+    hp = TrainHParams(optimizer=AdamWConfig(lr=1e-5, clip_norm=1.0),
+                      remat=True, entropy_coef=0.01)
+    for arch in KINDS:
+        t0 = time.perf_counter()
+        cfg = kind_config(arch)
+        expect = kind_launches(cfg)
+        controls, readings = [], []
+        for seed in KIND_SEEDS:
+            whole = init_model(torch.Generator(device="cuda").manual_seed(
+                seed), cfg, torch.float32, "cuda")
+            if cfg.kind == "vlm":  # open the cross layers (tanh(0) = 0)
+                whole["cross_layers"]["gate"].fill_(0.5)
+            batch = kind_batch(cfg, seed)
+            ref_loss, ref = loss_and_grads(cfg, hp, whole, batch)
+            want = tree_paths(ref)
+            del ref
+            ctl_line = "no control (the dispatch depends on the microbatch)"
+            if cfg.moe is None:
+                _, ctl = loss_and_grads(cfg, hp, whole, batch,
+                                        n_micro=KIND_ROWS)
+                ctl = tree_paths(ctl)
+                controls.append(grad_gap(ctl, want))
+                c_gn, c_leaf, c_path = controls[-1]
+                ctl_line = (f"control (4 microbatches of one row): grad norm "
+                            f"{c_gn:.3g}, worst leaf {c_path} {c_leaf:.3g}"
+                            + conv_parts(cfg, ctl, want))
+                del ctl
+            rank_log(rank, f"kinds: {arch} ({cfg.kind}) seed {seed}, width "
+                     f"{cfg.d_model}, {cfg.num_layers} layers"
+                     + (f" + {cfg.num_encoder_layers} encoder"
+                        if cfg.kind == "encdec" else "")
+                     + f", f32, {tuple(batch['tokens'].shape)} tokens: one "
+                     f"card loss {ref_loss:.6f}; {ctl_line}")
+            for data, model in KIND_MESHES:
+                mesh = make_local_mesh(model=model, data=data)
+                layout = Layout(mesh, param_specs(mesh, cfg, whole))
+                # a copy: the step updates its params in place, and a leaf
+                # that no axis splits is the whole tree's own tensor
+                local = tree_map(torch.clone,
+                                 shard_params(whole, mesh, layout.specs))
+                rows = T._local_rows(batch, mesh)
+                _, g = loss_and_grads(cfg, hp, local, rows, layout.gather)
+                got = tree_paths(layout.full(layout.reduce(g)))
+                del g
+                g_gn, g_leaf, g_path = grad_gap(got, want)
+                parts = conv_parts(cfg, got, want)
+                del got
+                for fn in counters.values():
+                    fn.launches = 0
+                step = make_train_step(cfg, hp, policy_loss, layout=layout)
+                local, opt, m = step(local, init_adamw(local), rows)
+                torch.cuda.synchronize()
+                k = {n: fn.launches for n, fn in counters.items()}
+                loss = torch.tensor([float(m["loss"])], dtype=torch.float64,
+                                    device="cuda")
+                torch.distributed.all_reduce(loss)
+                loss = float(loss[0]) / WORLD
+                err = {"loss": abs(loss - ref_loss) / abs(ref_loss),
+                       "grad_norm": max(g_gn, abs(float(m["grad_norm"])
+                                                  - grad_norm_of(want))
+                                        / grad_norm_of(want)),
+                       "leaf": g_leaf}
+                every = gathered(k, WORLD)
+                readings.append((seed, (data, model), err, g_path, parts))
+                if any(x != expect for x in every):
+                    misses.append((arch, seed, (data, model), "launches",
+                                   every, expect))
+                rank_log(rank, f"kinds: {arch} seed {seed} at (data, model) "
+                         f"= ({data}, {model}): launches a step on each rank "
+                         f"{every[0]} (predicted {expect}"
+                         + ("" if all(x == expect for x in every)
+                            else ", MISSED") + ")")
+                del local, opt, layout, rows, step
+                gc.collect()
+                torch.cuda.empty_cache()
+            del whole, want, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        bars = {"loss": 1e-5,
+                "grad_norm": max([1e-5] + [2 * c[0] for c in controls]),
+                "leaf": max([1e-5] + [2 * c[1] for c in controls])}
+        for seed, mesh, err, path, parts in readings:
+            over = [key for key in bars if err[key] > bars[key]]
+            if over:
+                misses.append((arch, seed, mesh, {key: (err[key], bars[key])
+                                                  for key in over}))
+            rank_log(rank, f"kinds: {arch} seed {seed} at (data, model) = "
+                     f"{mesh}: loss rel err {err['loss']:.3g}, grad norm "
+                     f"{err['grad_norm']:.3g}, worst gradient leaf {path} "
+                     f"{err['leaf']:.3g} of its norm{parts} (allowed "
+                     + ", ".join(f"{key} {v:.3g}" for key, v in bars.items())
+                     + f"): {'MISSED ' + str(over) if over else 'within'}")
+        rank_log(rank, f"kinds: {arch}: {time.perf_counter() - t0:.1f} s")
+    return misses
+
+
 def check_deep(rank: int) -> None:
     """yi-9b at all 48 layers over the four cards: peak bytes a card
     beside the dry-run's resident bytes, step seconds, tokens/s."""
@@ -346,7 +620,7 @@ def check_reshard(rank: int) -> None:
              f"{time.perf_counter() - t0:.3f} s")
 
 
-def rank_main(rank: int, port: int) -> int:
+def rank_main(rank: int, port: int, phases: list) -> int:
     import torch
     import torch.distributed as dist
 
@@ -358,25 +632,31 @@ def rank_main(rank: int, port: int) -> int:
     _build.library()
     assert maybe_init_distributed(f"tcp://localhost:{port}", WORLD, rank,
                                   device=f"cuda:{rank}")
+    misses = []
     try:
-        misses = check_layouts(rank)
-        check_deep(rank)
-        check_reshard(rank)
+        if "layouts" in phases:
+            misses += check_layouts(rank)
+        if "kinds" in phases:
+            misses += check_kinds(rank)
+        if "layouts" in phases:
+            check_deep(rank)
+            check_reshard(rank)
     finally:
         dist.destroy_process_group()
     assert not misses, f"layouts past their bars: {misses}"
     return 0
 
 
-def layouts() -> None:
-    """Phase "layouts": the four rank processes, their output printed as
-    it comes; any rank failing stops the others."""
+def layouts(phases: list) -> None:
+    """Phases "layouts" and "kinds": the four rank processes, their output
+    printed as it comes; any rank failing stops the others."""
     port = free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
-         "--port", str(port)], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+         "--port", str(port), "--phases", ",".join(phases)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(WORLD)]
     texts = ["" for _ in procs]
     try:
         import threading
@@ -668,12 +948,12 @@ def devices() -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(prog="python3 tools/multicard_smoke.py")
-    ap.add_argument("--phases", default="layouts,devices")
+    ap.add_argument("--phases", default="layouts,kinds,devices")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank is not None:
-        return rank_main(args.rank, args.port)
+        return rank_main(args.rank, args.port, args.phases.split(","))
     t_start = time.perf_counter()
     try:
         import torch
@@ -698,8 +978,9 @@ def main() -> int:
         f"{torch.version.cuda}; kernels built in "
         f"{time.perf_counter() - t0:.1f} s -> {so.name}")
     phases = args.phases.split(",")
-    if "layouts" in phases:
-        layouts()
+    ranked = [p for p in phases if p in ("layouts", "kinds")]
+    if ranked:
+        layouts(ranked)
     if "devices" in phases:
         _build.library()
         devices()
