@@ -59,11 +59,14 @@ layers in 9 groups with a shared attention block, 24 trained), each from
 random weights:
   5. serve      the model at full width in bf16 through ``PagedEngine``
                 (paged KV, or the state cache for SSM and hybrid): 16
-                requests, tokens/s, and the kernels' launch counters set
-                to 0 before the run and gated exactly after it;
+                requests (the SSM and hybrid models 8, cut to 96 prompt
+                tokens: their prompts go through the decode batch a
+                token a step), tokens/s, and the kernels' launch
+                counters set to 0 before the run and gated exactly
+                after it;
   6. greedy     the same requests twice at temperature 0, 16 new tokens
                 each: identical tokens (the SSM and hybrid models on 4
-                of them, cut to 64 prompt tokens: their prompts go
+                of them, cut to 32 prompt tokens: their prompts go
                 through the decode batch a token a step);
      static     (yi-9b and granite-moe) the static ``Engine`` on 8 prompts
                 of 64 tokens with 32 new: tokens/s, launches gated exactly
@@ -78,7 +81,9 @@ random weights:
   8. train      the model at full width, depth cut where needed, f32 params
                 and AdamW: three GRPO steps of 4 x 1024 tokens in two
                 microbatches, step time, peak memory and kernel launches
-                per step;
+                per step; the dry-run's peak estimate of the same step
+                (``launch.memory``, on the meta device) within 10 % of
+                the peak;
 then the kinds only the static engine serves:
   encdec        whisper-large-v3 at full size: recompute of 8 x 448
                 tokens with 1500 random frames (K3 64 a pass), a static
@@ -90,7 +95,7 @@ then the kinds only the static engine serves:
 and last the runtime end to end:
   9. grpo       ``GRPORunner`` on yi-9b at full width cut to 8 layers (f32
                 params and AdamW in the actor, copies synced into the
-                rollout and inference workers): profile, plan and three
+                rollout and inference workers): profile, plan and two
                 RL iterations of 16 rollouts of 8 + 64 tokens, once
                 collocated and once as the scheduler plans it ("auto"):
                 the profiled cost models, the plan, each iteration's wall
@@ -98,9 +103,8 @@ and last the runtime end to end:
                 the weight sync's seconds and bytes, the actor's offload
                 against its state bytes, peak memory; both runs strict
                 (flowlint passes 1-2 before every execute; the findings
-                and the lint's time printed), the auto run (two
-                iterations) traced and its plan-vs-actual report
-                printed;
+                and the lint's time printed), the auto run traced and
+                its plan-vs-actual report printed;
  10. rlhf       ``RLHFRunner`` (actor, critic, reference, reward, rollout,
                 inference: the paper's PPO diamond) on stablelm-12b at
                 full width cut to 2 of 40 layers, f32: profile, plan
@@ -139,8 +143,11 @@ and last the runtime end to end:
                 reduced yi-9b rollout worker bound cuda -> cpu -> cuda
                 with the tokens of an unmoved one and >= 90 % of its
                 engine's bytes freed off the card; the dry-run of yi-9b
-                x train_4k at (16, 16).
+                x train_4k at (16, 16), its peak estimate and fit; the
+                K3 backward's workspace mirror (the dry-run's) against
+                the library's at every shape pass 3 lints.
 
+Every phase's seconds are printed on a line of their own ("phase: ...").
 After the phases one line a kernel gives its time against its bound.
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before it a JSON object with every kernel's numbers, and
@@ -1551,15 +1558,17 @@ def serve_once(cfg, params, prompts, *, temperature, top_k, top_p,
                       eos_token=-1, dtype=torch.bfloat16, device="cuda")
     eng.set_params(params)
     if warm:  # before a timed run
-        eng.submit(prompts[0][:64], max_new_tokens=4, seed=99)
+        eng.submit(prompts[0][:SSM_SHORT if cfg.ssm is not None else 64],
+                   max_new_tokens=4, seed=99)
         eng.run()
         torch.cuda.synchronize()
     return eng
 
 
 def serve(cfg, params, prompts, results: dict) -> None:
-    """The serve workload through ``PagedEngine.run``, with the kernels'
-    launch counters set to 0 just before and read just after, and gated
+    """The serve workload through ``PagedEngine.run`` (``prompts``: the
+    caller cuts the SSM and hybrid ones to ``SSM_SERVE``), with the
+    kernels' launch counters set to 0 just before and read just after, and gated
     exactly: K2 once per decode batch; on a paged layout K1 once per layer
     per decode batch, and for an MoE stack K5 once per layer per decode
     batch and per prefill chunk, and K4 twice per K5 call; on the state
@@ -1738,7 +1747,8 @@ def breakdown(eng, prompts, kernels, steps: int = 8) -> None:
     import torch
 
     for i, p in enumerate(prompts[:eng.max_batch]):
-        eng.submit(p[:64], max_new_tokens=2 * steps + 4, seed=1000 + i)
+        eng.submit(p[:SSM_SHORT if eng.cfg.ssm is not None else 64],
+                   max_new_tokens=2 * steps + 4, seed=1000 + i)
     while any(r.num_cached < r.prompt_len
               for r in eng.scheduler.active_requests()) \
             or eng.scheduler.waiting:
@@ -1760,12 +1770,12 @@ def greedy_repeat(cfg, params, prompts) -> None:
     """The requests twice at temperature 0, 16 new tokens each: identical
     tokens.  On the state layout (SSM, hybrid), whose prompts go through
     the decode batch a token a step (four 918-step serves took ~220 s of
-    host-bound wall), 4 of them cut to 64 prompt tokens."""
+    host-bound wall), 4 of them cut to ``SSM_SHORT`` prompt tokens."""
     import torch
 
     new = 16
     if cfg.ssm is not None:
-        prompts = [p[:64] for p in prompts[:4]]
+        prompts = [p[:SSM_SHORT] for p in prompts[:4]]
     runs = []
     for _ in range(2):
         eng = serve_once(cfg, params, prompts, temperature=0.0, top_k=0,
@@ -1847,6 +1857,12 @@ def moe_recompute_report(params, batch, prefill):
 
 
 ROLLOUTS = (16, 448, 64)  # requests, prompt tokens, new tokens
+# the SSM and hybrid serves: requests and prompt tokens (their prompts go
+# through the decode batch a token a step: 16 requests of 64-512 tokens
+# took mamba2 918 engine steps, 8 of at most 96 take at most 160), and
+# the prompt tokens of their warm-up, breakdown and greedy repeat
+SSM_SERVE = (8, 96)
+SSM_SHORT = 32
 # An SSM engine steps each prompt through its decode batch a token at a
 # time (512 host-bound steps for a 448-token prompt): its recompute's
 # rollouts take 64-token prompts instead.
@@ -2075,6 +2091,7 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3,
     before = probe()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     times, fwd, bwd, sfwd, sbwd = [], 0, 0, 0, 0
     n_attn, n_ssm = (n * hp.n_microbatches for n in kernel_layers(cfg))
     for i in range(steps):
@@ -2100,9 +2117,12 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3,
             f"bwd={b}, ssd_scan launches fwd={sf} bwd={sb} (= layers x "
             f"{hp.n_microbatches} microbatches); "
             + ", ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())))
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 1e9
     for a, b in zip(before, probe()):
         assert not torch.equal(a, b), "train: params did not change"
+    check_estimate(cfg, peak_bytes, held, batch=batch, hp=hp,
+                   dtype=torch.float32)
     log(f"train: {cfg.name} full width cut to {layers} of "
         f"{cfg_full.num_layers} "
         f"layers ({n_params / 1e9:.3f} B params, f32 + AdamW), {B} x "
@@ -2121,6 +2141,32 @@ def train(cfg_full, results: dict, layers: int, steps: int = 3,
                   statistics.median(times),
                   profiled(lambda: step(params, opt, batch)),
                   FLASH_KERNELS + SSD_KERNELS)
+
+
+ESTIMATE_TOL = 0.10  # the dry-run's peak estimate against the card's
+
+
+def check_estimate(cfg, peak_bytes: int, held: int, **kw) -> None:
+    """The dry-run's peak estimate of a step (``launch.memory``: the same
+    step on the meta device, arguments plus the live temporaries' peak)
+    against ``max_memory_allocated`` over its runs (``held`` allocated
+    when the peak was reset): within ``ESTIMATE_TOL``."""
+    from repro_torch.launch.memory import peak_estimate
+
+    t0 = time.perf_counter()
+    est = peak_estimate(cfg, {"data": 1, "model": 1}, **kw)
+    mem = est.memory()
+    gap = mem["peak_est_bytes"] / peak_bytes - 1.0
+    log(f"train: {cfg.name} peak estimate {mem['peak_est_bytes'] / 1e9:.3f}"
+        f" GB (arguments {mem['argument_bytes'] / 1e9:.3f} + temporaries "
+        f"{mem['temp_bytes'] / 1e9:.3f} + outputs "
+        f"{mem['output_bytes'] / 1e9:.3f} - aliased "
+        f"{mem['alias_bytes'] / 1e9:.3f}; its peak at {est.peak_op}, op "
+        f"{est.peak_index} of {est.ops}) against max_memory_allocated "
+        f"{peak_bytes / 1e9:.3f} GB ({held / 1e9:.3f} held at the reset): "
+        f"{100 * gap:+.1f} % (tolerance {100 * ESTIMATE_TOL:.0f} %); "
+        f"estimated in {time.perf_counter() - t0:.1f} s")
+    assert abs(gap) <= ESTIMATE_TOL, (cfg.name, mem, peak_bytes)
 
 
 def launch_counters() -> dict:
@@ -2434,7 +2480,7 @@ def grpo(results: dict, mode: str) -> None:
     """One RL run end to end through the runtime: ``GRPORunner`` on yi-9b
     at full width cut to 8 layers, f32 params with AdamW in the actor,
     synced as they are (copies) into the rollout's paged engine and the
-    inference worker; profile -> plan -> 3 iterations of rollout (K1, K2),
+    inference worker; profile -> plan -> 2 iterations of rollout (K1, K2),
     logprob recompute (K3), reward and a train step (K3 and its
     backward).  Gates: every worker on the card; launches per iteration
     exact (K1 = layers x decode batches, K2 = decode batches, K3 = layers
@@ -2468,10 +2514,9 @@ def grpo(results: dict, mode: str) -> None:
     tag = f"grpo[{mode}]"
     reset_router()
     cfg = get_config("yi-9b").replace(num_layers=L)
-    # the auto run takes two iterations (the phase's time goes to recover)
+    # two iterations each: the script's time limit
     rl = GRPOConfig(batch_size=16, group_size=4, prompt_len=8,
-                    max_new_tokens=64, temperature=1.0,
-                    iterations=2 if mode == "auto" else 3,
+                    max_new_tokens=64, temperature=1.0, iterations=2,
                     profile_batches=(8, 16), mode=mode, seed=SEED)
     # the entropy bonus keeps the gradient alive while every reward of a
     # group is equal (random weights rarely answer right)
@@ -3684,38 +3729,79 @@ def check_rebind() -> None:
 
 def check_dryrun() -> None:
     """The dry-run of yi-9b x train_4k on the (16, 16) production mesh,
-    on the meta device: the resident bytes a device and their fit, and
-    the bytes the plain ops of its forward move."""
+    on the meta device: the resident bytes a device, the peak estimate
+    and their fit, and the bytes its forward's ops and kernel launches
+    move."""
     from repro_torch.launch.dryrun import run_case
 
     t0 = time.perf_counter()
     r = run_case("yi-9b", "train_4k", save=False, verbose=False)
     m = r["memory"]
     assert m["fits_resident"] and m["resident_bytes"] > 0, m
+    assert m["fits"] and m["peak_est_bytes"] >= m["argument_bytes"], m
     assert r["bytes_moved"]["per_device_bytes"] > m["resident_bytes"], r
     log(f"launch: dry-run yi-9b x train_4k x 16x16 ({r['chips']} cards) "
         f"on the meta device: {m['resident_bytes'] / 1e9:.3f} GB resident "
         f"a device (params {m['param_bytes'] / 1e9:.3f}, AdamW "
-        f"{m['opt_bytes'] / 1e9:.3f}, batch {m['batch_bytes'] / 1e9:.4f}; "
-        f"activations not counted) of {m['hbm_bytes'] / 1e9:.0f} GB: fits; "
+        f"{m['opt_bytes'] / 1e9:.3f}, batch {m['batch_bytes'] / 1e9:.4f}); "
+        f"peak_est_bytes {m['peak_est_bytes'] / 1e9:.3f} GB (temporaries "
+        f"{m['temp_bytes'] / 1e9:.3f}) of {m['hbm_bytes'] / 1e9:.0f} GB: "
+        f"fits={m['fits']}; "
         f"counted FLOPs / 6ND {r['flops']['counted_over_model']:.3f}; "
-        f"the plain ops move "
+        f"the ops and kernel launches move "
         f"{r['bytes_moved']['per_device_bytes'] / 1e9:.1f} GB a device; "
         f"collectives {r['collectives']['total_bytes'] / 1e9:.2f} GB a "
         f"step; dominant term {r['roofline']['dominant']}; "
         f"{time.perf_counter() - t0:.2f} s")
 
 
+def check_workspace() -> None:
+    """The dry-run's mirror of the K3 backward's scratch
+    (``analysis.kernel_checks.flash_bwd_workspace``, which the meta
+    route allocates) equal to the library's C entry
+    ``flash_attention_bwd_workspace`` at every K3 backward pass 3
+    lints."""
+    import torch
+
+    from repro_torch.analysis.kernel_checks import (flash_bwd_shapes,
+                                                    flash_bwd_workspace)
+    from repro_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _build.library()
+    rows = []
+    for B, H, KV, S, D, causal, window in flash_bwd_shapes():
+        got = lib.flash_attention_bwd_workspace(B, H, KV, S, D, int(causal),
+                                                window)
+        want = flash_bwd_workspace(B, H, KV, S, D, causal, window,
+                                   sm_count=sms)
+        assert got == want > 0, ((B, H, KV, S, D, causal, window), got,
+                                 want)
+        rows.append(f"{B} x {H}/{KV} x {S} x {D}"
+                    f"{'' if causal else ' bidirectional'} "
+                    f"{4 * got / 1e6:.2f} MB")
+    log(f"launch: the K3 backward's workspace mirror equals the library's "
+        f"at the {len(rows)} shapes pass 3 lints ({sms} SMs): "
+        + "; ".join(rows))
+
+
 def launch() -> None:
     """Phase 13: the kernel lint against the profiler (in a process of
-    its own), the launcher at world size 1, the engine's rebind and the
-    dry-run."""
-    t0 = time.perf_counter()
+    its own), the launcher at world size 1, the engine's rebind, the
+    dry-run and the K3 backward's workspace mirror."""
     check_lint_fresh()
     check_launcher()
     check_rebind()
     check_dryrun()
-    log(f"launch: phase took {time.perf_counter() - t0:.1f} s")
+    check_workspace()
+
+
+def timed(name: str, fn, *args, **kw):
+    """Run one phase and print its seconds on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase: {name} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3752,40 +3838,48 @@ def main() -> int:
     check_build(so)
 
     results: dict = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        check_paged_attention(dtype, results)
-        check_paged_attention(dtype, results, GRANITE_HEADS,
-                              "granite-moe-3b-a800m")
-        check_paged_attention(dtype, results, STABLELM_HEADS, "stablelm-12b")
-    # the rlhf phase's decode batch: 8 slots of 8 prompt + <= 32 new tokens
-    check_paged_attention(torch.float32, results, STABLELM_HEADS,
-                          "stablelm-12b", RLHF_DECODE_CTX)
-    check_fused_sample(results)
-    check_fused_sample(results, 51200, 49155, "granite-moe-3b-a800m")
-    check_fused_sample(results, 51200, 50280, "mamba2-370m")
-    check_fused_sample(results, 32768, 32000, "zamba2-2.7b")
-    check_fused_sample(results, 100352, 100352, "stablelm-12b")
-    check_fused_sample(results, 53248, 51866, "whisper-large-v3")
-    check_fused_sample(results, 129024, 128256, "llama-3.2-vision-90b")
-    check_flash_attention(results)
-    check_flash_zamba2()
-    check_flash_stablelm(results)
-    check_flash_whisper(results)
-    check_flash_phases(results)
-    check_grouped_matmul(results)
-    check_moe_decode(results)
-    check_ssd_scan(results)
-    check_ssm_update(results)
-    for arch in ("yi-9b", "granite-moe-3b-a800m", "mamba2-370m",
-                 "zamba2-2.7b"):
-        check_reference(arch, ((0.0, 0, 1.0),)
-                        if arch == "granite-moe-3b-a800m"
-                        else ((0.0, 0, 1.0), (1.0, 8, 0.9)))
-        check_ref_train(arch)
-    for arch, window in STATIC_REF:
-        check_static_reference(arch, window)
-    for arch in ("llama-3.2-vision-90b", "whisper-large-v3"):
-        check_ref_train(arch)
+
+    def kernel_checks():
+        for dtype in (torch.float32, torch.bfloat16):
+            check_paged_attention(dtype, results)
+            check_paged_attention(dtype, results, GRANITE_HEADS,
+                                  "granite-moe-3b-a800m")
+            check_paged_attention(dtype, results, STABLELM_HEADS,
+                                  "stablelm-12b")
+        # the rlhf phase's decode batch: 8 slots of 8 prompt + <= 32 new
+        check_paged_attention(torch.float32, results, STABLELM_HEADS,
+                              "stablelm-12b", RLHF_DECODE_CTX)
+        check_fused_sample(results)
+        check_fused_sample(results, 51200, 49155, "granite-moe-3b-a800m")
+        check_fused_sample(results, 51200, 50280, "mamba2-370m")
+        check_fused_sample(results, 32768, 32000, "zamba2-2.7b")
+        check_fused_sample(results, 100352, 100352, "stablelm-12b")
+        check_fused_sample(results, 53248, 51866, "whisper-large-v3")
+        check_fused_sample(results, 129024, 128256, "llama-3.2-vision-90b")
+        check_flash_attention(results)
+        check_flash_zamba2()
+        check_flash_stablelm(results)
+        check_flash_whisper(results)
+        check_flash_phases(results)
+        check_grouped_matmul(results)
+        check_moe_decode(results)
+        check_ssd_scan(results)
+        check_ssm_update(results)
+
+    def references():
+        for arch in ("yi-9b", "granite-moe-3b-a800m", "mamba2-370m",
+                     "zamba2-2.7b"):
+            check_reference(arch, ((0.0, 0, 1.0),)
+                            if arch == "granite-moe-3b-a800m"
+                            else ((0.0, 0, 1.0), (1.0, 8, 0.9)))
+            check_ref_train(arch)
+        for arch, window in STATIC_REF:
+            check_static_reference(arch, window)
+        for arch in ("llama-3.2-vision-90b", "whisper-large-v3"):
+            check_ref_train(arch)
+
+    timed("kernels", kernel_checks)
+    timed("ref and ref-train", references)
 
     # each model's main paths at full width: serve, greedy repeat, the
     # static engine (the dense and MoE models) and recompute from random
@@ -3805,31 +3899,34 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
                    for n in rng.integers(64, 513, size=16)]
-        serve(cfg, params, prompts, results)
-        greedy_repeat(cfg, params, prompts)
+        served = (prompts if cfg.ssm is None else
+                  [p[:SSM_SERVE[1]] for p in prompts[:SSM_SERVE[0]]])
+        timed(f"serve {arch}", serve, cfg, params, served, results)
+        timed(f"greedy {arch}", greedy_repeat, cfg, params, prompts)
         if cfg.kind in ("dense", "moe"):
-            static_step(cfg, params, results)
-        recompute(cfg, params, results)
+            timed(f"static {arch}", static_step, cfg, params, results)
+        timed(f"recompute {arch}", recompute, cfg, params, results)
         del params  # free the serve weights before training
         torch.cuda.empty_cache()
         if cfg.moe is not None:
-            moe_f32_paths(cfg)
-        train(cfg, results, train_layers)
+            timed(f"moe f32 paths {arch}", moe_f32_paths, cfg)
+        timed(f"train {arch}", train, cfg, results, train_layers)
         torch.cuda.empty_cache()
     # the kinds only the static engine serves, at full width
-    encdec(results)
-    vlm(results)
+    timed("encdec", encdec, results)
+    timed("vlm", vlm, results)
 
     # the runtime end to end: profile -> plan -> execute on the card
-    grpo(results, "collocated")
-    grpo(results, "auto")
+    timed("grpo collocated", grpo, results, "collocated")
+    timed("grpo auto", grpo, results, "auto")
     # the paper's two other workflow families
-    rlhf(results)
-    embodied(results)
+    timed("rlhf", rlhf, results)
+    timed("embodied", embodied, results)
     # checkpoints and kill-and-recover
-    recover(results)
-    # the kernel lint, the launcher, the rebind and the dry-run
-    launch()
+    timed("recover", recover, results)
+    # the kernel lint, the launcher, the rebind, the dry-run and the
+    # workspace mirror
+    timed("launch", launch)
 
     kernels = [results[k] for k in ("paged_attention", "fused_sample",
                                     "flash_fwd", "flash_bwd",

@@ -192,6 +192,41 @@ def _bwd_head_groups(B: int, H: int, KV: int, key_blocks: int,
     return G
 
 
+def _bwd_key_blocks(S: int, causal: bool) -> int:
+    """``key_blocks``: launch 2's blocks along the keys, a key tile each
+    or a causal pair."""
+    nk = _cdiv(S, 64)
+    return (nk + 1) // 2 if causal else nk
+
+
+def _bwd_tiles(S: int, causal: bool, window: int) -> int:
+    """``tiles_before(nq, S, causal, window)``: the live (query tile,
+    key tile) pairs of one (b, h), each a 64 x 64 dS tile."""
+    n = 0
+    for i in range(_cdiv(S, 64)):
+        q0 = 64 * i
+        tb = (max(q0 - window + 1, 0) if window > 0 else 0) // 64
+        te = _cdiv(min(S, q0 + 64) if causal else S, 64)
+        n += te - tb
+    return n
+
+
+def flash_bwd_workspace(B: int, H: int, KV: int, S: int, D: int,
+                        causal: bool = True, window: int = 0,
+                        sm_count: int = H100_SM_COUNT) -> int:
+    """``flash_attention_bwd_workspace`` of
+    ``csrc/flash_attention_bwd.cu``, in floats: the dS tiles (4096
+    floats each), delta (B, H, S), then two (B, KV, S, D) partials a
+    query-head group when a KV head's heads are split into more than
+    one."""
+    if B < 1 or S < 1 or KV < 1 or H % KV:
+        return 0
+    groups = _bwd_head_groups(B, H, KV, _bwd_key_blocks(S, causal),
+                              sm_count)
+    return ((B * H * _bwd_tiles(S, causal, window) << 12) + B * H * S
+            + (2 * groups * B * KV * S * D if groups > 1 else 0))
+
+
 def flash_bwd_invocations(shape_name: str, *, B: int, H: int, S: int,
                           D: int, KV: int, causal: bool = True,
                           sm_count: int = H100_SM_COUNT
@@ -206,7 +241,7 @@ def flash_bwd_invocations(shape_name: str, *, B: int, H: int, S: int,
     stage 64-row f32 tiles of D padded to 16 (64 below 64) + 4 floats."""
     G = _group(H, KV)
     nk = _cdiv(S, 64)
-    key_blocks = (nk + 1) // 2 if causal else nk
+    key_blocks = _bwd_key_blocks(S, causal)
     groups = _bwd_head_groups(B, H, KV, key_blocks, sm_count)
     pitch = _bwd_pad_d(D) + 4
     nt = 4 if D <= 64 else (8 if D <= 128 else 12)
@@ -690,6 +725,24 @@ def default_invocations(sm_count: int = H100_SM_COUNT
             "whisper-large-v3/encoder-train", B=min(sc.global_batch, 8),
             H=H, S=S, D=D, KV=KV, model=model, causal=False,
             sm_count=sm_count))
+    return out
+
+
+def flash_bwd_shapes() -> List[Tuple[int, int, int, int, int, bool, int]]:
+    """(B, H, KV, S, D, causal, window) of every K3 backward launch that
+    :func:`default_invocations` lints: the train shape, yi-9b's heads on
+    a tensor-parallel rank and whisper's encoder's, bidirectional.  The
+    card checks ``flash_attention_bwd_workspace`` against
+    :func:`flash_bwd_workspace` at these."""
+    sc = SHAPES["train_4k"]
+    B, S = min(sc.global_batch, 8), sc.seq_len
+    out = [(B, 28, 4, S, 128, True, 0)]
+    H, KV, D = YI_TP_HEADS
+    out += [(B, *local_heads(H, KV, m), S, D, True, 0)
+            for m in TP_MODEL_AXES]
+    (H, KV, D), frames = WHISPER_ENCODER
+    out += [(B, *local_heads(H, KV, m), frames, D, False, 0)
+            for m in SPLIT_MODEL_AXES]
     return out
 
 

@@ -1,9 +1,13 @@
 """Dispatch from model layouts onto the kernels.
 
 A tensor on the card goes to the hand-written CUDA kernel; a tensor on
-the CPU goes to the kernel's plain PyTorch version, and so does one on
-the meta device, which holds no data (the dry-run counts the plain
-versions' FLOPs there).  There is no fallback: a failed launch raises.
+the CPU goes to the kernel's plain PyTorch version.  A tensor on the
+meta device, which holds no data, goes to the kernel's footprint
+(``kernels.meta``, the dry-run's route): one operator a launch that
+allocates what the card's wrapper allocates and saves what its
+``autograd.Function`` saves, counted at its plain version's FLOPs; the
+kernels no dry-run step reaches (K1, K2, K4) take their plain versions
+there.  There is no fallback: a failed launch raises.
 Each wrapper launches under its tensors' card (``torch.cuda.device``):
 the C launchers set a kernel's shared-memory attribute and launch on
 the calling thread's current device, and a worker rebound to another
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import meta as _kmeta
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import sampling as _samp
@@ -37,6 +42,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if _on_card(q):
         out = _fa.FlashAttention.apply(qt, kt, vt, causal, window)
+    elif q.device.type == "meta":
+        out = _kmeta.FlashAttention.apply(qt, kt, vt, causal, window)
     else:
         out, _ = _fa.flash_attention_plain(qt, kt, vt, causal=causal,
                                            window=window)
@@ -73,7 +80,12 @@ def moe_decode(x, expert_idx, gate_vals, gate_w, up_w, down_w):
     """Drop-free exact top-k decode FFN (token->expert gather + grouped
     per-expert products + combine): x (T, d), expert_idx/gate_vals
     (T, k), gate_w/up_w (E, d, f), down_w (E, f, d) -> (T, d)."""
-    fn = _gmm.moe_decode_gmm if _on_card(x) else _gmm.moe_decode_gmm_plain
+    if _on_card(x):
+        fn = _gmm.moe_decode_gmm
+    elif x.device.type == "meta":
+        fn = _kmeta.moe_decode
+    else:
+        fn = _gmm.moe_decode_gmm_plain
     return fn(x, expert_idx, gate_vals, gate_w, up_w, down_w)
 
 
@@ -99,11 +111,12 @@ def ssd_scan(x, dt, A, Bm, Cm, D, chunk: int):
     Bk = Bm.reshape(B, nc, chunk, N)
     Ck = Cm.reshape(B, nc, chunk, N)
     Ab, Db = A.expand(B, H), D.expand(B, H)
-    if _on_card(x):
+    if _on_card(x) or x.device.type == "meta":
         args = (xk, dtk.float(), Ab.float(), Bk.to(x.dtype), Ck.to(x.dtype),
                 Db.float())
         save = torch.is_grad_enabled() and any(t.requires_grad for t in args)
-        y = _ssd.SSDScan.apply(*args, save)
+        fn = _ssd.SSDScan if _on_card(x) else _kmeta.SSDScan
+        y = fn.apply(*args, save)
     else:
         y = _ssd.ssd_scan_plain(xk, dtk, Ab, Bk, Ck, Db)
     return y.permute(0, 2, 3, 1, 4).reshape(B, L + pad, H, P)[:, :L]
@@ -114,6 +127,10 @@ def ssm_state_update(state, x, dt, A, Bm, Cm, D):
     layout): state (B, H, P, N) f32, x (B, H, P), dt (B, H), A (H,),
     Bm/Cm (B, N), D (H,) -> (y (B, H, P) f32, new_state (B, H, P, N) f32)."""
     B, H = dt.shape
-    fn = (_ssu.ssm_state_update_bh if _on_card(state)
-          else _ssu.ssm_state_update_plain)
+    if _on_card(state):
+        fn = _ssu.ssm_state_update_bh
+    elif state.device.type == "meta":
+        fn = _kmeta.ssm_state_update
+    else:
+        fn = _ssu.ssm_state_update_plain
     return fn(state, x, dt, A.expand(B, H), Bm, Cm, D.expand(B, H))

@@ -198,6 +198,15 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, states, dy):
             _TYPES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
+    return finish_bwd(x, Bm, Cm, dx, ddt, dbp, dcp, dap, ddp)
+
+
+def finish_bwd(x, Bm, Cm, dx, ddt, dbp, dcp, dap, ddp):
+    """The backward kernel's outputs as the gradient of (x, dt, A, Bm,
+    Cm, D): the per-head partials of dBm and dCm and the per-chunk ones
+    of dA and dD summed in order."""
+    B, H, nc, s, P = x.shape
+    N = Bm.shape[-1]
     dBm = dbp.sum(dim=1).reshape(B, nc, s, N).to(Bm.dtype)
     dCm = dcp.sum(dim=1).reshape(B, nc, s, N).to(Cm.dtype)
     return dx, ddt, dap.sum(dim=2), dBm, dCm, ddp.sum(dim=2)

@@ -11,14 +11,24 @@ logical production mesh (``launch/mesh.py``) and records, for each case:
     decode state of a decode step, from the sharding rules
     (``train/sharding_rules.py``: the layout the launcher gives its f32
     params and moments, :func:`train_state_bytes`), and the batch's;
-    whether they fit in the card's 80 GB (``fits_resident``:
-    activations and temporaries are not counted, so a case that fits
-    may still not run);
+    ``fits_resident`` when they fit in the card's 80 GB;
+  * JAX's memory analysis, from the step itself (``launch.memory``):
+    rank 0 of the mesh runs the train step (``make_train_step`` with
+    :func:`hparams_for`'s microbatches and remat, through
+    ``train.parallel.Layout``), the prefill step or one decode step on
+    meta tensors, and the live bytes give ``argument_bytes``,
+    ``output_bytes``, ``alias_bytes`` (the port's AdamW updates in
+    place, so a train step's outputs alias its arguments), ``temp_bytes``
+    and ``peak_est_bytes`` = argument + temp + output - alias, JAX's
+    formula; ``fits`` when that peak fits;
   * FLOPs from ``model_flops`` (6 N D), with ``FlopCounterMode`` over
-    one meta forward (or decode step) of the kernels' plain versions as
-    a cross-check, and the bytes that forward's ops move (each op's
-    tensor operands read once and its results written once, views
-    moving nothing: no fusion), both x3 for a train step;
+    one meta forward (or decode step) as a cross-check, each kernel
+    launch counted at its plain version's products (``kernels.meta``),
+    and the bytes that forward's ops move (each op's tensor operands
+    read once and its results written once, views moving nothing: no
+    fusion; a kernel launch reads its operands and writes its results
+    and scratch, as JAX's cost analysis counts a Pallas call), both x3
+    for a train step;
   * each step's collective bytes (``utils.roofline.collective_bytes``);
   * the roofline terms on the H100 (``utils/hardware.py``) from the
     counted FLOPs and bytes, an even share of each a device.
@@ -47,10 +57,12 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels.meta import FLOP_FORMULAS
+from repro_torch.launch.memory import MetaMemo, meta_model, peak_estimate
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import init_model
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import init_adamw
+from repro_torch.train.trainer import TrainHParams
 from repro_torch.train.sharding_rules import (
     array_batch_specs,
     decode_state_specs,
@@ -63,6 +75,7 @@ from repro_torch.utils.roofline import (
     model_flops,
     per_device_bytes,
 )
+from repro_torch.utils.sharding import mesh_shape
 
 ASSIGNED_ARCHS = [
     "granite-moe-3b-a800m",
@@ -93,9 +106,26 @@ def arch_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
     return cfg
 
 
+def hparams_for(cfg: ModelConfig, shape: ShapeConfig,
+                mesh: Any) -> TrainHParams:
+    """JAX's ``hparams_for``: 4, 8 or 16 microbatches as d_model x depth
+    grows, halved until each one's rows split over ("pod", "data"), with
+    remat.  Its ``act_spec`` (sequence-parallel activations) has no
+    counterpart in ``train.parallel.Layout``: rank 0 holds the whole
+    sequence of its rows."""
+    act_cost = cfg.d_model * cfg.num_layers
+    n_micro = 16 if act_cost >= 500_000 else (
+        8 if act_cost >= 120_000 else 4)
+    sizes = mesh_shape(mesh)
+    dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    while n_micro > 1 and (shape.global_batch // n_micro) % dp != 0:
+        n_micro //= 2
+    return TrainHParams(n_microbatches=max(n_micro, 1), remat=True)
+
+
 def meta_params(cfg: ModelConfig, dtype=PARAM_DTYPE):
     """The full-size weights as meta tensors."""
-    return init_model(torch.Generator().manual_seed(0), cfg, dtype, META)
+    return meta_model(cfg, dtype)
 
 
 def train_state_bytes(cfg: ModelConfig, mesh: Any,
@@ -152,10 +182,14 @@ def counted(cfg: ModelConfig, shape: ShapeConfig, params,
             state: Optional[M.DecodeState] = None) -> Tuple[float, float]:
     """(FLOPs, bytes) of one meta forward of the batch (one decode step
     of the state for a decode shape), x3 for a train step:
-    ``FlopCounterMode``'s count, the cross-check of :func:`model_flops`,
-    and :class:`ByteCounter`'s."""
+    ``FlopCounterMode``'s count, the cross-check of :func:`model_flops`
+    (each kernel launch at its plain version's products), and
+    :class:`ByteCounter`'s (each launch its operands, results and
+    scratch)."""
     moved = ByteCounter()
-    with FlopCounterMode(display=False) as fc, moved, torch.no_grad():
+    with MetaMemo(), FlopCounterMode(display=False,
+                                     custom_mapping=FLOP_FORMULAS) as fc, \
+            moved, torch.no_grad():
         if shape.phase == "decode":
             B = shape.global_batch
             M.decode_step(params, cfg,
@@ -201,9 +235,17 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
         mem["opt_bytes"] = (per_device_bytes(mesh, opt.mu, pspecs)
                             + per_device_bytes(mesh, opt.nu, pspecs))
     total = sum(mem.values())
+    if shape.phase == "decode":
+        est = peak_estimate(cfg, mesh, phase="decode",
+                            decode_rows=shape.global_batch,
+                            cache_len=shape.seq_len)
+    else:
+        est = peak_estimate(cfg, mesh, phase=shape.phase, batch=batch,
+                            hp=hparams_for(cfg, shape, mesh))
     mem.update(resident_bytes=total, hbm_bytes=DEFAULT_CHIP.hbm_bytes,
                fits_resident=total <= DEFAULT_CHIP.hbm_bytes,
-               excludes="activations and temporaries")
+               **est.memory())
+    mem["fits"] = mem["peak_est_bytes"] <= DEFAULT_CHIP.hbm_bytes
     coll = collective_bytes(mesh, params, pspecs,
                             train=shape.phase == "train")
     mf = model_flops(cfg, shape)
@@ -214,7 +256,8 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
         hlo_flops=flops / chips,
         hlo_bytes=moved / chips,
         collective_bytes=float(sum(coll["bytes"].values())),
-        model_flops=mf, arg_bytes=total,
+        model_flops=mf, arg_bytes=mem["argument_bytes"],
+        temp_bytes=mem["temp_bytes"],
         collective_counts=coll["counts"]).finalize()
     result = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name, "chips": chips,
@@ -241,7 +284,9 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"{mem['param_bytes'] / 1e9:.2f}, opt "
               f"{mem['opt_bytes'] / 1e9:.2f}, state "
               f"{mem['decode_state_bytes'] / 1e9:.2f}) "
-              f"fits_resident={mem['fits_resident']}  "
+              f"fits_resident={mem['fits_resident']}  peak est "
+              f"{mem['peak_est_bytes'] / 1e9:.2f} GB (temp "
+              f"{mem['temp_bytes'] / 1e9:.2f}) fits={mem['fits']}  "
               f"dom={rep.dominant}")
         print("         " + rep.row())
     if save:

@@ -102,6 +102,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def hparams(args: argparse.Namespace) -> TrainHParams:
+    """The step's hyperparameters from the flags (the dry-run's peak
+    estimate of a launcher step reads them too)."""
+    return TrainHParams(
+        optimizer=AdamWConfig(lr=args.lr, warmup_steps=10, clip_norm=1.0),
+        n_microbatches=args.n_micro, remat=not args.smoke)
+
+
 def layout_mesh(world: int, model: int, multi_pod: bool,
                 device_type: str):
     """The launcher's mesh over ``world`` ranks: (data, model), or (pod 2,
@@ -139,9 +147,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace, *,
             log("launch", f"arch={cfg.name} mesh={mesh_dims(mesh)} "
                 f"world={world} device={device} "
                 f"params≈{cfg.param_count() / 1e9:.2f}B")
-        hp = TrainHParams(
-            optimizer=AdamWConfig(lr=args.lr, warmup_steps=10, clip_norm=1.0),
-            n_microbatches=args.n_micro, remat=not args.smoke)
+        hp = hparams(args)
         whole = init_model(torch.Generator(device=device).manual_seed(0),
                            cfg, torch.float32, device)
         layout = Layout(mesh, param_specs(mesh, cfg, whole))

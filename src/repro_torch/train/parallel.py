@@ -44,10 +44,15 @@ this module does the collectives by hand, with the same result.
       all-reduces the sum.
 
 At a mesh whose axes all have size 1 every method is the identity and
-the step is ``make_train_step``'s bit for bit.
+the step is ``make_train_step``'s bit for bit.  On a mesh of names and
+sizes only (``utils.sharding.LogicalMesh``, the dry-run's) each axis has
+a :class:`MetaGroup` and the layout computes rank 0's part on meta
+tensors: every collective allocates its result as the ``nccl`` branch
+does, one output each, and moves no data (``launch.memory``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Tuple
 
@@ -121,6 +126,35 @@ def _dist():
     return dist
 
 
+@dataclass(frozen=True)
+class MetaGroup:
+    """A mesh axis of a :class:`~repro_torch.utils.sharding.LogicalMesh`
+    in place of a process group: its size, this process its rank 0.  A
+    collective over it takes meta tensors only: it allocates what the
+    ``nccl`` branch allocates and moves nothing."""
+    size: int
+
+
+def _meta(group, x: torch.Tensor) -> bool:
+    """Whether a collective over ``group`` takes the meta route."""
+    if not isinstance(group, MetaGroup):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a mesh of names and sizes takes meta tensors, "
+                         f"got one on {x.device}")
+    return True
+
+
+def _all_reduce(x: torch.Tensor, group=None, op=None) -> None:
+    """``dist.all_reduce`` in place (the sum unless ``op``); nothing on
+    the meta route."""
+    if _meta(group, x):
+        return
+    dist = _dist()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+
+
 def _contiguous_copy(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
@@ -128,9 +162,12 @@ def _contiguous_copy(x: torch.Tensor) -> torch.Tensor:
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The blocks of ``x`` from every rank of ``group``, concatenated
     along ``dim`` in group-rank order."""
+    x = x.movedim(dim, 0).contiguous()
+    if _meta(group, x):
+        return x.new_empty((group.size * x.shape[0],)
+                           + tuple(x.shape[1:])).movedim(0, dim)
     dist = _dist()
     n = dist.get_world_size(group)
-    x = x.movedim(dim, 0).contiguous()
     if dist.get_backend(group) == "nccl":
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
         dist.all_gather_into_tensor(out, x, group=group)
@@ -144,9 +181,12 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``, this rank's block along ``dim``
     (gloo has no reduce-scatter: it all-reduces and takes the block)."""
+    x = _contiguous_copy(x.movedim(dim, 0))
+    if _meta(group, x):
+        k = x.shape[0] // group.size
+        return x.new_empty((k,) + tuple(x.shape[1:])).movedim(0, dim)
     dist = _dist()
     n = dist.get_world_size(group)
-    x = _contiguous_copy(x.movedim(dim, 0))
     k = x.shape[0] // n
     if dist.get_backend(group) == "nccl":
         out = x.new_empty((k,) + tuple(x.shape[1:]))
@@ -182,7 +222,7 @@ class _Enter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         g = _contiguous_copy(grad)
-        _dist().all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -192,7 +232,7 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = _contiguous_copy(x)
-        _dist().all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y
 
     @staticmethod
@@ -209,13 +249,13 @@ class _Total(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = _contiguous_copy(x)
-        _dist().all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         g = _contiguous_copy(grad)
-        _dist().all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -243,7 +283,7 @@ class ModelParallel:
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The largest ``x`` over the model ranks (no gradient)."""
         y = _contiguous_copy(x.detach())
-        _dist().all_reduce(y, op=_dist().ReduceOp.MAX, group=self.group)
+        _all_reduce(y, self.group, _dist().ReduceOp.MAX)
         return y
 
 
@@ -327,18 +367,23 @@ def shard_params(params: Any, mesh: Any, specs: Any) -> Any:
 class Layout:
     """A param tree's layout on a mesh: the mesh, the spec tree (from
     ``param_specs``, for the whole leaves) and a process group for each
-    axis of size above 1."""
+    axis of size above 1 (a :class:`MetaGroup` on a mesh of names and
+    sizes only: rank 0's compute on meta tensors)."""
     mesh: Any
     specs: Any
     sizes: Dict[str, int] = field(init=False)
     coords: Dict[str, int] = field(init=False)
     groups: Dict[str, Any] = field(init=False)
+    world: Any = field(init=False)  # the group of every rank
 
     def __post_init__(self):
         self.sizes = mesh_shape(self.mesh)
         self.coords = _coords(self.mesh)
-        self.groups = {a: self.mesh.get_group(a)
+        logical = not hasattr(self.mesh, "get_group")
+        self.groups = {a: MetaGroup(n) if logical else self.mesh.get_group(a)
                        for a, n in self.sizes.items() if n > 1}
+        self.world = MetaGroup(math.prod(self.sizes.values())) \
+            if logical else None
 
     # -- sizes ---------------------------------------------------------------
     @property
@@ -555,7 +600,7 @@ class Layout:
 
         def reduce(total):
             total = total.reshape(1).clone()
-            _dist().all_reduce(total)
+            _all_reduce(total, self.world)
             return total[0]
 
         return global_norm(grads, counted=self._counted(), reduce=reduce)
@@ -581,7 +626,6 @@ def _all_reduce_leaves(leaves: List[torch.Tensor], idx: List[int],
     """Sum the contiguous f32 ``leaves[i]`` for ``i`` in ``idx`` over
     ``group``: small ones through flat buckets (the list's entries
     replaced by views of the bucket), a large one in place."""
-    dist = _dist()
     bucket: List[int] = []
     size = 0
 
@@ -590,7 +634,7 @@ def _all_reduce_leaves(leaves: List[torch.Tensor], idx: List[int],
         if not bucket:
             return
         flat = torch.cat([leaves[i].reshape(-1) for i in bucket])
-        dist.all_reduce(flat, group=group)
+        _all_reduce(flat, group)
         off = 0
         for i in bucket:
             n = leaves[i].numel()
@@ -601,7 +645,7 @@ def _all_reduce_leaves(leaves: List[torch.Tensor], idx: List[int],
     for i in idx:
         nbytes = leaves[i].numel() * 4
         if nbytes > BUCKET_BYTES:
-            dist.all_reduce(leaves[i], group=group)
+            _all_reduce(leaves[i], group)
             continue
         if size + nbytes > BUCKET_BYTES:
             flush()
@@ -610,5 +654,6 @@ def _all_reduce_leaves(leaves: List[torch.Tensor], idx: List[int],
     flush()
 
 
-__all__ = ["Layout", "ModelParallel", "RowParallel", "all_gather",
-           "local_heads", "reduce_scatter", "shard_params", "tp_heads"]
+__all__ = ["Layout", "MetaGroup", "ModelParallel", "RowParallel",
+           "all_gather", "local_heads", "reduce_scatter", "shard_params",
+           "tp_heads"]

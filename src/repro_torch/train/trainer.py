@@ -202,14 +202,20 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, loss_fn=policy_loss,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, hp: Optional[TrainHParams] = None):
-    """Inference worker: recompute per-token logprobs for a rollout batch."""
+def make_prefill_step(cfg: ModelConfig, hp: Optional[TrainHParams] = None,
+                      layout=None):
+    """Inference worker: recompute per-token logprobs for a rollout batch.
+    With a ``layout`` (``train.parallel.Layout``) the params are this
+    rank's shards and the batch its rows, each layer gathered through
+    ``layout.gather`` as in :func:`make_train_step` (the dry-run's rank
+    0, ``launch.memory``)."""
     hp = hp or TrainHParams()
+    gather = layout.gather if layout is not None else None
 
     @torch.no_grad()
     def prefill_step(params, batch: Batch) -> torch.Tensor:
         logits, _ = M.forward(params, cfg, batch["tokens"], _extra(batch),
-                              remat=hp.remat)
+                              remat=hp.remat, gather=gather)
         lp = token_logprobs(logits[:, :-1], batch["tokens"][:, 1:],
                             cfg.vocab_size)
         # align: entry t scores tokens[t]; entry 0 zero

@@ -1528,3 +1528,27 @@ def test_rollout_rebind_cuda_cpu_cuda(dev):
     leg, frees >= 90 % of its engine's bytes off the card, and launches
     K1 and K2 exactly on the card legs (chip_smoke.py's check)."""
     _chip_smoke().check_rebind()
+
+
+def _workspace_shapes():
+    from repro_torch.analysis.kernel_checks import flash_bwd_shapes
+
+    # every K3 backward pass 3 lints, and yi-9b's train microbatch
+    return flash_bwd_shapes() + [(2, 32, 4, 1024, 128, True, 0)]
+
+
+@pytest.mark.parametrize("shape", _workspace_shapes(),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_workspace_mirror_equals_the_library(dev, shape):
+    """The dry-run's Python mirror of the K3 backward's scratch
+    (``analysis.kernel_checks.flash_bwd_workspace``, at the card's SM
+    count) equals the C entry ``flash_attention_bwd_workspace`` that the
+    wrapper sizes its buffer by."""
+    from repro_torch.analysis.kernel_checks import flash_bwd_workspace
+
+    B, H, KV, S, D, causal, window = shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    got = _build.library().flash_attention_bwd_workspace(
+        B, H, KV, S, D, int(causal), window)
+    assert got == flash_bwd_workspace(B, H, KV, S, D, causal, window,
+                                      sm_count=sms) > 0

@@ -140,3 +140,143 @@ def test_rollout_engine_fallback_is_traced_and_counted():
     instants, snap = out["port"]
     assert [i[0] for i in instants] == ["engine-fallback"]
     assert snap["rollout/engine_fallback"]["value"] == 1
+
+
+# ---------------------------------------------------------------------------
+# ``python -m repro_torch.obs``: the port's flowtrace
+# ---------------------------------------------------------------------------
+import json  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FAMILIES = ("grpo", "rlhf", "embodied")
+
+
+def _run(argv, tmp: Path, **env):
+    """A subprocess with a minimal environment and one intra-op thread
+    (the tiny runners are slower on many)."""
+    base = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+            "HOME": os.environ.get("HOME", "/tmp"), "OMP_NUM_THREADS": "1",
+            "JAX_PLATFORMS": "cpu"}
+    base.update(env)
+    return subprocess.run([sys.executable] + argv, cwd=tmp, env=base,
+                          capture_output=True, text=True, timeout=600)
+
+
+@pytest.fixture(scope="module")
+def flowtrace(tmp_path_factory):
+    """The port's CLI over the three families with ``--check`` and
+    ``--overhead``, on the CPU."""
+    tmp = tmp_path_factory.mktemp("flowtrace")
+    res = _run(["-m", "repro_torch.obs", "--device", "cpu", "--check",
+                "--overhead", "--out", str(tmp / "P")], tmp)
+    return tmp, res
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_flowtrace_check_passes_and_writes_jaxs_files(flowtrace, family):
+    """``--check`` exits 0 over grpo, rlhf and embodied, and each family
+    leaves ``<out>.<family>.trace.json`` and ``.report.json`` beside
+    ``<out>.summary.json``, as the JAX tool does."""
+    tmp, res = flowtrace
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    report = json.loads((tmp / f"P.{family}.report.json").read_text())
+    trace = json.loads((tmp / f"P.{family}.trace.json").read_text())
+    summary = json.loads((tmp / "P.summary.json").read_text())
+    assert summary["problems"] == []
+    fam = {d["family"]: d for d in summary["families"]}[family]
+    assert fam["trace_path"] == str(tmp / f"P.{family}.trace.json")
+    assert report["measured_wall_s"] > 0 and report["drift"]
+    assert any(e.get("name") == "iteration-1" for e in trace["traceEvents"])
+
+
+def test_flowtrace_overhead_runs(flowtrace):
+    """``--overhead`` measures the tracing tax (no test reads its ratio:
+    wall-clock ratios under a loaded pytest run are noise)."""
+    _, res = flowtrace
+    assert "tracing overhead (toy pipeline, min of 5)" in res.stdout
+
+
+def test_flowtrace_needs_a_device_without_cuda():
+    """Like every entry point of the port: the card by default, and an
+    error without CUDA unless ``--device cpu`` is given."""
+    from repro_torch.obs.__main__ import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--family", "grpo"])
+
+
+def _key_paths(x, prefix=""):
+    """Every key path of a JSON value, list items under ``[]``."""
+    out = set()
+    if isinstance(x, dict):
+        for k, v in x.items():
+            out.add(f"{prefix}/{k}")
+            out |= _key_paths(v, f"{prefix}/{k}")
+    elif isinstance(x, list):
+        for v in x:
+            out |= _key_paths(v, prefix + "[]")
+    return out
+
+
+# runs one flowtrace (the JAX tool loaded by path, or the port's module)
+# on the grpo runner with the plan's mode forced, so both runs execute
+# the same plan: the spans an auto plan emits (switches, channels)
+# follow the profiled wall-clock costs of each run
+FORCED = """
+import importlib.util, sys
+path, mode, out = sys.argv[1], sys.argv[2], sys.argv[3]
+if path.endswith(".py"):
+    spec = importlib.util.spec_from_file_location("flowtrace", path)
+    ft = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ft)
+    extra = []
+else:
+    import repro_torch.obs.__main__ as ft
+    extra = ["--device", "cpu"]
+build = ft.build_runner
+
+
+def forced(*args, **kw):
+    runner = build(*args, **kw)
+    runner.mode = mode
+    return runner
+
+
+ft.build_runner = forced
+sys.exit(ft.main(["--family", "grpo", "--out", out] + extra))
+"""
+
+
+@pytest.mark.parametrize("mode", ["collocated", "disaggregated"])
+def test_flowtrace_artifacts_have_the_jax_tools_keys_and_spans(tmp_path,
+                                                               mode):
+    """The JAX tool (``tools/flowtrace.py``, loaded by path, not edited)
+    and the port's on the same grpo runner and plan (collocated: the
+    switches' spans; disaggregated: the channels'): the report, the
+    summary and the trace events have the same key paths, and the trace
+    the same span names."""
+    (tmp_path / "forced.py").write_text(FORCED)
+    got = {}
+    for side, path in (("J", str(ROOT / "tools" / "flowtrace.py")),
+                       ("P", "repro_torch.obs")):
+        res = _run([str(tmp_path / "forced.py"), path, mode,
+                    str(tmp_path / side)], tmp_path)
+        assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+        trace = json.loads((tmp_path / f"{side}.grpo.trace.json").read_text())
+        got[side] = (
+            _key_paths(json.loads(
+                (tmp_path / f"{side}.grpo.report.json").read_text())),
+            _key_paths(json.loads(
+                (tmp_path / f"{side}.summary.json").read_text())),
+            {e.get("name") for e in trace["traceEvents"]},
+            {k for e in trace["traceEvents"] for k in e})
+    assert got["P"] == got["J"]
+    names = got["P"][2]
+    assert ({"offload:rollout"} if mode == "collocated"
+            else {"produce", "consume"}) <= names

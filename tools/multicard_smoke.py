@@ -24,8 +24,9 @@ does), then runs three phases:
             that is larger; each rank's params and moments hold the
             dry-run's bytes a device for its mesh; then yi-9b at all 48
             layers, 3 steps, at (4, 1) and (2, 2): each card's peak bytes
-            over the steps beside the dry-run's resident bytes, the step
-            seconds and tokens/s; then ``reshard`` and ``reshard_params``
+            over the steps beside the dry-run's resident bytes and its
+            peak estimate (within 10 %), the step seconds and tokens/s;
+            then ``reshard`` and ``reshard_params``
             between specs on a (2, 2) mesh of the four cards, bit for
             bit;
   kinds     in the same rank processes: granite-moe, mamba2, zamba2,
@@ -540,9 +541,31 @@ def check_kinds(rank: int) -> list:
     return misses
 
 
-def check_deep(rank: int) -> None:
+ESTIMATE_TOL = 0.10  # the dry-run's peak estimate against each card's
+
+
+def deep_estimate(cfg, args, mesh_dims: dict):
+    """The dry-run's peak estimate (``launch.memory.peak_estimate``) of
+    the launcher's step: rank 0 of ``mesh_dims``, f32 params, the
+    launcher's hyperparameters and loss, its (batch, seq) int64 tokens."""
+    import torch
+
+    from repro_torch.launch import train as T
+    from repro_torch.launch.memory import peak_estimate
+    from repro_torch.train.trainer import lm_loss
+
+    tokens = torch.empty((args.batch, args.seq), dtype=torch.int64,
+                         device="meta")
+    return peak_estimate(cfg, mesh_dims, batch={"tokens": tokens},
+                         hp=T.hparams(args), dtype=torch.float32,
+                         loss_fn=lm_loss)
+
+
+def check_deep(rank: int) -> list:
     """yi-9b at all 48 layers over the four cards: peak bytes a card
-    beside the dry-run's resident bytes, step seconds, tokens/s."""
+    beside the dry-run's resident bytes and its peak estimate (rank 0's
+    step on the meta device, within ``ESTIMATE_TOL`` of every card's
+    peak), step seconds, tokens/s; returns the misses."""
     import torch
 
     from repro_torch.configs import get_config
@@ -550,6 +573,7 @@ def check_deep(rank: int) -> None:
     from repro_torch.launch.dryrun import train_state_bytes
 
     cfg = get_config("yi-9b")
+    misses = []
     for name, flags in DEEP:
         args = T.parse_args(RUN + flags)
         t0 = time.perf_counter()
@@ -566,6 +590,18 @@ def check_deep(rank: int) -> None:
         steps = gathered(run.step_seconds, WORLD)
         slow = [max(s[i] for s in steps) for i in range(args.steps)]
         tok = args.batch * args.seq
+        if rank == 0:
+            est = deep_estimate(cfg, args, run.mesh_dims)
+            gaps = [est.memory()["peak_est_bytes"] / p - 1.0 for p in peaks]
+            rank_log(rank, f"48 layers {name} {run.mesh_dims}: peak "
+                     f"estimate (launch.memory, rank 0's step on the meta "
+                     f"device) {est.memory()['peak_est_bytes'] / 1e9:.3f} "
+                     f"GB, its peak at {est.peak_op}, op {est.peak_index} "
+                     f"of {est.ops}; against each card's peak "
+                     f"{[f'{100 * g:+.1f} %' for g in gaps]} (tolerance "
+                     f"{100 * ESTIMATE_TOL:.0f} %)")
+            if max(abs(g) for g in gaps) > ESTIMATE_TOL:
+                misses.append((name, "peak estimate", est.memory(), peaks))
         rank_log(rank, f"48 layers {name} {run.mesh_dims}: yi-9b "
                  f"{cfg.param_count() / 1e9:.2f} B params f32 + AdamW, "
                  f"{args.steps} steps of {args.batch} x {args.seq} with "
@@ -582,6 +618,7 @@ def check_deep(rank: int) -> None:
         del run
         gc.collect()
         torch.cuda.empty_cache()
+    return misses
 
 
 def check_reshard(rank: int) -> None:
@@ -639,7 +676,7 @@ def rank_main(rank: int, port: int, phases: list) -> int:
         if "kinds" in phases:
             misses += check_kinds(rank)
         if "layouts" in phases:
-            check_deep(rank)
+            misses += check_deep(rank)
             check_reshard(rank)
     finally:
         dist.destroy_process_group()
